@@ -1,18 +1,19 @@
-"""manifold_flow_tpu — TPU-native framework for manifold-based optical flow.
+"""manifold_flow_tpu — JAX framework for manifold-based optical flow.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of
+A JAX/XLA framework with the capabilities of
 `SEU-dynamical-models/Manifold-based-optical-flow-method` (the reference is a
 pure-Python staged pipeline; see /root/repo/SURVEY.md): variational optical
 flow on triangulated 2-manifolds via P1 finite elements, plus the downstream
 vector-field analyses (singularity detection/classification, spatiotemporal
-SVD, wave speeds, streamlines, winding numbers) — all designed TPU-first:
+SVD, wave speeds, streamlines, winding numbers) — all designed for a
+batched accelerator (GPU) first:
 
 * one canonical geometry layer (the reference duplicates its basis /
   projection helpers across five files, SURVEY.md §2 "Duplication");
 * triangle-batched gather/scatter FEM operators instead of scipy LIL
   assembly (reference: utils/compute_optical_flow.py:27-149);
-* a batched matrix-free preconditioned-CG solve with frames on the TPU
-  lane axis instead of `multiprocessing.Pool` + per-frame SuperLU
+* a batched matrix-free preconditioned-CG solve with frames on a batch
+  axis instead of `multiprocessing.Pool` + per-frame SuperLU
   (reference: utils/compute_optical_flow.py:152-194);
 * `vmap`-able analysis ops with fixed shapes and masked ragged outputs;
 * `jax.sharding` device-mesh parallelism over ('frames', 'mesh') axes.

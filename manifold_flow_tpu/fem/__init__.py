@@ -1,6 +1,6 @@
 """FEM layer: triangle-batched assembly and matrix-free operators.
 
-TPU-native replacement for the reference's scipy LIL assembly + per-frame
+Batched replacement for the reference's scipy LIL assembly + per-frame
 sparse matrices (utils/compute_optical_flow.py:27-149): the operator
 A_k = a1_k + lambda * a2 is represented by precomputed per-triangle 6x6
 blocks (a2) plus per-frame rank-structured factors (a1), applied by

@@ -25,9 +25,13 @@ pairs reproduces the reference's upper-triangle + mirror construction.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from manifold_flow_tpu.geometry.mesh import TriMesh
+
+# f32 contractions run at full f32 precision (no TF32 on GPUs).
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 _W_MASS = None  # lazily built (3, 3) mass weight pattern (J + I)
 
@@ -51,8 +55,10 @@ def corner_bases(mesh: TriMesh) -> jnp.ndarray:
 def a2_blocks(mesh: TriMesh) -> jnp.ndarray:
     """Per-triangle regularization blocks (M, 6, 6). Precomputed once."""
     et = corner_bases(mesh)                                    # (M, 3, 2, 3)
-    gg = jnp.einsum("mid,mjd->mij", mesh.grad_w, mesh.grad_w)  # (M, 3, 3)
-    ee = jnp.einsum("miad,mjbd->miajb", et, et)                # (M, 3, 2, 3, 2)
+    gg = jnp.einsum("mid,mjd->mij", mesh.grad_w, mesh.grad_w,
+                    precision=_HIGHEST)  # (M, 3, 3)
+    ee = jnp.einsum("miad,mjbd->miajb", et, et,
+                    precision=_HIGHEST)  # (M, 3, 2, 3, 2)
     blocks = ee * gg[:, :, None, :, None] * mesh.areas[:, None, None, None, None]
     m = mesh.triangles.shape[0]
     return blocks.reshape(m, 6, 6)
@@ -66,9 +72,11 @@ def frame_factors(mesh: TriMesh, potentials: jnp.ndarray) -> jnp.ndarray:
     (utils/compute_optical_flow.py:116-117).
     """
     i_tri = potentials[..., mesh.triangles]                   # (T, M, 3)
-    grad_m = jnp.einsum("tmc,mcd->tmd", i_tri, mesh.grad_w)   # (T, M, 3)
+    grad_m = jnp.einsum("tmc,mcd->tmd", i_tri, mesh.grad_w,
+                        precision=_HIGHEST)  # (T, M, 3)
     et = corner_bases(mesh)                                   # (M, 3, 2, 3)
-    return jnp.einsum("tmd,mcad->tmca", grad_m, et)           # (T, M, 3, 2)
+    return jnp.einsum("tmd,mcad->tmca", grad_m, et,
+                      precision=_HIGHEST)  # (T, M, 3, 2)
 
 
 def gather_base_table(mesh: TriMesh) -> jnp.ndarray:
@@ -85,7 +93,7 @@ def reduce_local(mesh: TriMesh, y_loc: jnp.ndarray) -> jnp.ndarray:
     """Reduce per-triangle local DOF contributions (T, M, 6) -> (T, 2N).
 
     Fixed-width gather + sum over each vertex's incident (cell, corner)
-    slots; TPU scatter-add would serialize (see kernels/reduce.py notes).
+    slots (scatter-free; see kernels/reduce.py notes).
     """
     t = y_loc.shape[0]
     base = gather_base_table(mesh)
@@ -109,7 +117,7 @@ def rhs_vector(mesh: TriMesh, g: jnp.ndarray, dI: jnp.ndarray) -> jnp.ndarray:
 def a1_blocks(mesh: TriMesh, g: jnp.ndarray) -> jnp.ndarray:
     """Dense per-frame data blocks (T, M, 6, 6) (only for the direct solver)."""
     w = _mass_pattern(g.dtype) * (mesh.areas[:, None, None] / 12.0)  # (M, 3, 3)
-    blocks = jnp.einsum("tmia,tmjb,mij->tmiajb", g, g, w)
+    blocks = jnp.einsum("tmia,tmjb,mij->tmiajb", g, g, w, precision=_HIGHEST)
     t, m = g.shape[0], g.shape[1]
     return blocks.reshape(t, m, 6, 6)
 
@@ -140,15 +148,17 @@ def diag_contributions(mesh: TriMesh, g: jnp.ndarray,
     Kept per-triangle so distributed solvers can shard the triangle axis and
     scatter + psum locally (parallel.partition). Computes in g's dtype (mesh
     geometry is cast down if needed): preconditioner accuracy only affects
-    inner-iteration counts, so an f32 build avoids emulated-f64 assembly on
-    TPU even when the mesh is f64 (solve.refine).
+    inner-iteration counts, so the refined solver builds it in f32 even
+    when the mesh is f64 (solve.refine).
     """
     et = corner_bases(mesh).astype(g.dtype)                   # (M, 3, 2, 3)
     areas = mesh.areas.astype(g.dtype)
-    ee = jnp.einsum("mcad,mcbd->mcab", et, et)                # (M, 3, 2, 2)
+    ee = jnp.einsum("mcad,mcbd->mcab", et, et,
+                    precision=_HIGHEST)  # (M, 3, 2, 2)
     gg = jnp.sum(mesh.grad_w * mesh.grad_w, axis=-1).astype(g.dtype)  # (M, 3)
     reg = ee * (gg * areas[:, None])[:, :, None, None]        # (M, 3, 2, 2)
-    dat = jnp.einsum("tmca,tmcb->tmcab", g, g) * (areas / 6.0)[:, None, None, None]
+    dat = jnp.einsum("tmca,tmcb->tmcab", g, g,
+                     precision=_HIGHEST) * (areas / 6.0)[:, None, None, None]
     return lambda_ * reg[None] + dat                          # (T, M, 3, 2, 2)
 
 

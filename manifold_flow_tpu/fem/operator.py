@@ -1,6 +1,6 @@
 """Matrix-free batched operator A_k = a1_k + lambda * a2.
 
-The TPU-native replacement for per-frame scipy CSR matrices
+The batched replacement for per-frame scipy CSR matrices
 (utils/compute_optical_flow.py:143-147): one gather -> local 6x6 contraction
 -> segment scatter-add, batched over all frames simultaneously (frames ride
 the leading axis; XLA fuses the whole matvec into a few kernels).
@@ -8,7 +8,7 @@ the leading axis; XLA fuses the whole matvec into a few kernels).
 The a1 part is never materialized: its local block is
 B1 = (A/12) * (J + I) ⊗ g g^T, so A1 x reduces to two tiny contractions per
 triangle (s = <g, x_local>, then g * (s + sum s)), which is both fewer FLOPs
-and less HBM traffic than block matvecs.
+and less memory traffic than block matvecs.
 """
 
 from __future__ import annotations
@@ -20,6 +20,9 @@ import jax.numpy as jnp
 
 from manifold_flow_tpu.fem import assembly
 from manifold_flow_tpu.geometry.mesh import TriMesh
+
+# f32 contractions run at full f32 precision (no TF32 on GPUs).
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @jax.tree_util.register_dataclass
@@ -44,8 +47,8 @@ class FlowOperator:
     # Gather-mode reduction table (N, C): flat index m*6 + slot*2 into the
     # local-contribution array for each vertex's incident (cell, corner);
     # padded entries point at an appended zero slot. Turns the scatter-add
-    # into a fixed-width gather + sum — much faster under TPU f64 emulation
-    # and the basis for compensated-precision reductions.
+    # into a fixed-width gather + sum (deterministic summation order).
+    # Whether it still beats scatter-add on the GPU is ROADMAP C3.
     gather_base: jnp.ndarray | None = None
     n_dof: int = dataclasses.field(default=0, metadata=dict(static=True))
 
@@ -58,7 +61,8 @@ class FlowOperator:
         t = x.shape[0]
         m = self.dof.shape[0]
         xg = x[:, self.dof]                                  # (T, M, 6)
-        y2 = jnp.einsum("mij,tmj->tmi", self.blocks2, xg)    # (T, M, 6)
+        y2 = jnp.einsum("mij,tmj->tmi", self.blocks2, xg,
+                        precision=_HIGHEST)  # (T, M, 6)
         xg32 = xg.reshape(t, m, 3, 2)
         s = jnp.sum(self.g * xg32, axis=-1)                  # (T, M, 3)
         stot = jnp.sum(s, axis=-1, keepdims=True)            # (T, M, 1)
@@ -70,7 +74,7 @@ class FlowOperator:
         """Apply A to x (T, 2N) -> (T, 2N).
 
         With a gather_base table the reduction is a fixed-width gather + sum
-        (TPU scatter-add serializes); mesh-partitioned solves use
+        (deterministic summation order); mesh-partitioned solves use
         parallel.halo.HaloOperator instead of this class.
         """
         t = x.shape[0]

@@ -184,6 +184,10 @@ def _precompute_quantities(pts, tris, nrm, n_vertices: int):
     return nrm, areas, basis, grad_w, integrals
 
 
+_precompute_jit = jax.jit(_precompute_quantities,
+                          static_argnames=("n_vertices",))
+
+
 def build_mesh(points, triangles, normals=None, dtype=None) -> TriMesh:
     """Construct a TriMesh from raw arrays (host-side, runs once per surface).
 
@@ -191,10 +195,8 @@ def build_mesh(points, triangles, normals=None, dtype=None) -> TriMesh:
     the reference takes from `surface.point_normals`,
     utils/compute_optical_flow.py:349).
 
-    The precompute runs as ONE jitted program on the CPU backend: dispatching
-    it op-by-op on a remote accelerator would pay per-op compile + transfer
-    latency for a strictly host-side, once-per-surface step. Results land on
-    the default device afterwards.
+    The precompute runs as ONE jitted program on the default device, so its
+    results are already where the solver uses them.
     """
     points = np.asarray(points)
     if dtype is not None:
@@ -203,22 +205,10 @@ def build_mesh(points, triangles, normals=None, dtype=None) -> TriMesh:
     n_vertices = int(points.shape[0])
     n_triangles = int(triangles.shape[0])
 
-    try:
-        cpu = jax.devices("cpu")[0]
-    except RuntimeError:  # exotic configs without a CPU backend
-        cpu = None
     nrm_in = (None if normals is None
               else np.asarray(normals, dtype=points.dtype))
-    compute = jax.jit(_precompute_quantities,
-                      static_argnames=("n_vertices",))
-    if cpu is not None and jax.devices()[0].platform != "cpu":
-        with jax.default_device(cpu):
-            out = compute(points, triangles, nrm_in, n_vertices)
-        nrm, areas, basis, grad_w, integrals = (
-            jnp.asarray(np.asarray(a)) for a in out)
-    else:
-        nrm, areas, basis, grad_w, integrals = compute(
-            points, triangles, nrm_in, n_vertices)
+    nrm, areas, basis, grad_w, integrals = _precompute_jit(
+        points, triangles, nrm_in, n_vertices)
     pts = jnp.asarray(points)
     tris = jnp.asarray(triangles)
 
@@ -285,10 +275,9 @@ def _pad_rows(a: np.ndarray, multiple: int, fill: int) -> np.ndarray:
 def pad_mesh(mesh: TriMesh, vertex_multiple: int = 128,
              triangle_multiple: int = 256, table_multiple: int = 8,
              edge_multiple: int = 2048) -> TriMesh:
-    """Round the mesh's array shapes up to multiples for TPU tiling and —
-    the bigger win on a remote accelerator — fixed-shape program reuse:
-    surfaces padded to the same bucket share one compiled program per kernel
-    instead of recompiling per subject/run. The jit cache keys on EVERY
+    """Round the mesh's array shapes up to multiples for fixed-shape program
+    reuse: surfaces padded to the same bucket share one compiled program per
+    kernel instead of recompiling per subject/run. The jit cache keys on EVERY
     pytree leaf's shape, so the topology tables are bucketed too: adjacency
     widths round to `table_multiple` and the unique-edge table to
     `edge_multiple` rows (all consumers mask on PAD_INDEX already), and the
@@ -384,7 +373,7 @@ def unpad_dof_field(mesh: TriMesh, arr) -> np.ndarray:
     halves), so unpadding keeps the first nv entries of each half.
     Returns HOST numpy — on a device array this is a synchronous fetch;
     use unpad_dof_field_device when the result stays on device (the fetch
-    cost over a remote accelerator link is the whole array)."""
+    moves the whole array)."""
     arr = np.asarray(arr)
     n = mesh.n_vertices
     nv = int(mesh.valid_vertices)

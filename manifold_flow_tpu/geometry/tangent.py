@@ -1,4 +1,4 @@
-"""Tangent-space primitives, vectorized for TPU.
+"""Tangent-space primitives, vectorized over vertices and frames.
 
 The reference implements these as per-vertex Python functions, duplicated in
 five modules (reference: utils/compute_optical_flow.py:210-235,
@@ -9,7 +9,11 @@ batched jnp function applied over leading axes.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+# f32 contractions run at full f32 precision (no TF32 on GPUs).
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def tangent_basis(normals: jnp.ndarray) -> jnp.ndarray:
@@ -84,4 +88,4 @@ def recombine_tangent(coeffs: jnp.ndarray, e: jnp.ndarray) -> jnp.ndarray:
     (utils/find_singularity_point.py:28-69, duplicated in
     utils/draw_optical_flow_field.py:33-71).
     """
-    return jnp.einsum("...na,nad->...nd", coeffs, e)
+    return jnp.einsum("...na,nad->...nd", coeffs, e, precision=_HIGHEST)

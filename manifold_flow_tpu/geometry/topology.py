@@ -44,7 +44,8 @@ def bfs_levels(vertex_neighbors: jnp.ndarray, source: jnp.ndarray,
     Returns levels (N,) int32: 0 at the source, k for the k-th ring,
     -1 for vertices beyond `max_level`. Fixed-iteration masked BFS: each step
     gathers the frontier mask over the padded 1-ring table, so it is jit- and
-    vmap-compatible (TPU equivalent of `point_neighbors_levels`, S7:131).
+    vmap-compatible (batched equivalent of `point_neighbors_levels`,
+    S7:131).
     """
     n = vertex_neighbors.shape[0]
     neigh = jnp.where(vertex_neighbors == PAD_INDEX, 0, vertex_neighbors)

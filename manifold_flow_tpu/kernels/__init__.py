@@ -1,24 +1,6 @@
-"""Performance kernels.
+"""Plain-JAX numerical kernels.
 
-kernels.df32 — two-float32 error-free-transform arithmetic: the TPU-native
-replacement for emulated float64 in the refined solver's residual path
-(~2x end-to-end speedup on the reference-scale bench).
-
-On Pallas for the FEM matvec (measured analysis, reference-scale mesh of
-~3.1k vertices / ~6.2k triangles, 97 frames batched):
-  * the matvec is gather/scatter-latency bound, not FLOP bound (~45 MB of
-    HBM traffic, ~60 MFLOP);
-  * layout experiments ((T, 2N) lane-gathers vs (2N, T) row-gathers, gather-
-    sum vs scatter-add reductions) all land within ~10% — XLA's lowering is
-    not the bottleneck at this size;
-  * Mosaic/Pallas has no vectorized dynamic row addressing, so an in-kernel
-    gather must go through one-hot MXU matmuls whose operand streaming costs
-    as much HBM traffic as the entire current matvec.
-A Pallas path becomes profitable at larger meshes (vertex blocks + halo
-slabs resident in VMEM across a fused CG iteration); the blocked partition
-scheme in parallel.partition is the stepping stone to it.
+kernels.reduce — a scatter-free sorted-COO segment reduction (ReducePlan)
+for fixed-topology assembly; whether it still beats scatter-add /
+segment_sum on the GPU is ROADMAP C3.
 """
-
-from manifold_flow_tpu.kernels import df32
-
-__all__ = ["df32"]

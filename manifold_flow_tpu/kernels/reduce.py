@@ -1,11 +1,10 @@
-"""Scatter-free batched segment reduction for FEM assembly on TPU.
+"""Scatter-free batched segment reduction for fixed-topology FEM assembly.
 
-XLA lowers scatter-add on TPU to a serialized per-index loop, which makes
-naive `zeros.at[idx].add(vals)` assembly the dominant cost of anything built
-once per solve (measured: ~45 ms for the coarse-preconditioner assembly at
-reference scale vs < 1 ms of actual FLOPs). This module replaces scatter
-with the standard sorted-COO two-stage reduction, expressed entirely as
-static gathers + dense reshape-sums, which run at HBM bandwidth:
+Written for an accelerator whose XLA lowered scatter-add to a serialized
+per-index loop; whether it still beats `zeros.at[idx].add(vals)` /
+`jax.ops.segment_sum` on the GPU is ROADMAP C3. It replaces scatter with
+the standard sorted-COO two-stage reduction, expressed entirely as static
+gathers + dense reshape-sums (deterministic summation order):
 
   1. Host-side (once per mesh): sort the contribution indices; pad each
      output slot's run of contributions to a multiple of `group`; record

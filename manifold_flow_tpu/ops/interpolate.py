@@ -2,7 +2,7 @@
 
 Replaces the reference's per-frame `scipy.interpolate.Rbf` fit + eval loop
 (S2_interpolate.py:22-53, S2_interpolate_phases.py:22-56). The kernel system
-is one small dense ExE solve and an ExN evaluation — ideal MXU work — and all
+is one small dense ExE solve and an ExN evaluation, and all
 frames share the same electrode geometry, so the kernel matrix is factorized
 once and every frame is solved as one multi-RHS triangular solve (the
 reference refits the RBF from scratch every frame).
@@ -56,15 +56,9 @@ def rbf_interpolate_phases(coords: jnp.ndarray, phi: jnp.ndarray,
                            epsilon: jnp.ndarray | None = None,
                            smooth: float = 0.0, kind: str = "multiquadric"
                            ) -> jnp.ndarray:
-    """Phase interpolation with REAL program inputs/outputs: e^{i phi} ->
-    complex RBF -> angle, all inside one compiled program
-    (S2_interpolate_phases.py:52-56,177-182).
-
-    This is the TPU-safe phases entrypoint: complex buffers cannot cross
-    this TPU backend's host<->device boundary, and eager complex op chains
-    poison downstream fetches (utils.precision) — so the complex unit-circle
-    values exist only as internal tensors here. phi (T, E) real -> (T, P)
-    real angles.
+    """Phase interpolation: e^{i phi} -> complex RBF -> angle, in one
+    compiled program (S2_interpolate_phases.py:52-56,177-182). phi (T, E)
+    real -> (T, P) real angles.
     """
     values = jax.lax.complex(jnp.cos(phi), jnp.sin(phi))
     out = _rbf_solve(coords, values, targets, epsilon, smooth, kind)
@@ -80,9 +74,7 @@ def rbf_interpolate(coords: jnp.ndarray, values: jnp.ndarray,
 
     Returns (T, P). Complex `values` are supported (the phases pipeline
     interpolates e^{i phi}, S2_interpolate_phases.py:177-182): the real kernel
-    system is solved once with complex right-hand sides. NOTE: complex
-    values/results cannot cross the TPU backend's transfer boundary — use
-    rbf_interpolate_phases (real I/O) on accelerators.
+    system is solved once with complex right-hand sides.
     """
     return _rbf_solve(coords, values, targets, epsilon, smooth, kind)
 
@@ -93,41 +85,23 @@ def _rbf_solve(coords, values, targets, epsilon, smooth, kind):
     a = _kernel(_pairwise_dist(coords, coords), epsilon, kind)
     a = a - smooth * jnp.eye(coords.shape[0], dtype=a.dtype)
     b = _kernel(_pairwise_dist(targets, coords), epsilon, kind)   # (P, E)
-    # TPU XLA implements LuDecomposition only for f32/c64 (f64 fails to
-    # compile), so on TPU the factor is f32 and f64 inputs refine toward
-    # full precision through iterative residual correction (f64 residual
-    # matmuls are tiny (E,E)@(E,T)) — the same mixed-precision recipe as
-    # solve.refine, limited to cond(A) < ~1/eps_f32. Backends WITH f64 LU
-    # (CPU/GPU) keep the exact factorization: ill-conditioned RBF kernels
-    # (large dense grids) exceed what f32 refinement can recover.
-    from manifold_flow_tpu.utils.precision import on_tpu
-
-    f32_factor = a.dtype == jnp.float64 and on_tpu()
-    lu, piv = jax.scipy.linalg.lu_factor(
-        a.astype(jnp.float32) if f32_factor else a)
+    # Exact LU in the kernel matrix's own dtype: ill-conditioned RBF kernels
+    # (large dense grids) need the full f64 factorization for scipy parity.
+    lu, piv = jax.scipy.linalg.lu_factor(a)
+    hi = jax.lax.Precision.HIGHEST
 
     def solve(rhs):
-        if not f32_factor:
-            return jax.scipy.linalg.lu_solve((lu, piv), rhs.astype(a.dtype)
-                                             ).astype(rhs.dtype)
-        x = jax.scipy.linalg.lu_solve(
-            (lu, piv), rhs.astype(jnp.float32)).astype(jnp.float64)
-        rhs64 = rhs.astype(jnp.float64)
-        for _ in range(3):
-            r = rhs64 - a.astype(jnp.float64) @ x
-            x = x + jax.scipy.linalg.lu_solve(
-                (lu, piv), r.astype(jnp.float32)).astype(jnp.float64)
-        return x.astype(rhs.dtype)
+        return jax.scipy.linalg.lu_solve((lu, piv), rhs.astype(a.dtype)
+                                         ).astype(rhs.dtype)
 
     if jnp.iscomplexobj(values):
-        # Real matmuls + one final lax.complex: complex matmuls would run as
-        # emulated pairs anyway, and on TPU a complex128 tensor cannot even
-        # exist off-device (utils.precision). Precision follows the input:
-        # complex64 values solve at f32, complex128 get the refined path.
+        # Real matmuls + one final lax.complex: the kernel system is real,
+        # so the real and imaginary planes solve independently.
         rdt = values.real.dtype
         w_re = solve(values.real.T)                               # (E, T)
         w_im = solve(values.imag.T)
         b_r = b.astype(rdt)
-        return jax.lax.complex((b_r @ w_re.astype(rdt)).T,
-                               (b_r @ w_im.astype(rdt)).T)
-    return (b @ solve(values.T)).T
+        return jax.lax.complex(
+            jnp.matmul(b_r, w_re.astype(rdt), precision=hi).T,
+            jnp.matmul(b_r, w_im.astype(rdt), precision=hi).T)
+    return jnp.matmul(b, solve(values.T), precision=hi).T

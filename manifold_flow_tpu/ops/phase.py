@@ -21,15 +21,8 @@ def hilbert(x: jnp.ndarray, axis: int = 0) -> jnp.ndarray:
     default axis=-1 — the electrode axis. Pass axis=-1 to reproduce that
     behavior; the default here is the time axis (axis=0), the standard
     instantaneous-phase construction.
-
-    On TPU, float64 input is transformed at float32 precision: the backend
-    cannot represent complex128 (utils.precision), and the downstream
-    quantity is an angle where f32 is ~1e-7-accurate.
     """
-    from manifold_flow_tpu.utils.precision import spectral_real_dtype
-
     x = jnp.asarray(x)
-    x = x.astype(spectral_real_dtype(x.dtype))
     n = x.shape[axis]
     xf = jnp.fft.fft(x, axis=axis)
     h = jnp.zeros(n, dtype=xf.real.dtype)
@@ -44,13 +37,8 @@ def hilbert(x: jnp.ndarray, axis: int = 0) -> jnp.ndarray:
 
 @partial(jax.jit, static_argnames=("axis",))
 def instantaneous_phase(potentials: jnp.ndarray, axis: int = 0) -> jnp.ndarray:
-    """np.angle(hilbert(x)) (compute_phase_from_potentials, S2_phases:58-68).
-
-    Jitted with REAL inputs and outputs: on this TPU backend complex buffers
-    cannot cross the host<->device boundary (transfers hang or return
-    UNIMPLEMENTED), and even eager op chains with complex intermediates
-    poison downstream fetches — complex tensors must live entirely inside
-    one compiled program (utils.precision)."""
+    """np.angle(hilbert(x)) (compute_phase_from_potentials, S2_phases:58-68),
+    as one jitted program with real inputs and outputs."""
     z = hilbert(potentials, axis=axis)
     return jnp.arctan2(z.imag, z.real)
 

@@ -8,7 +8,11 @@ utils/draw_optical_flow_field.py:33-71) and `process_V_k_to_complex`
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+# f32 contractions run at full f32 precision (no TF32 on GPUs).
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def split_components(v_k: jnp.ndarray) -> jnp.ndarray:
@@ -20,7 +24,7 @@ def split_components(v_k: jnp.ndarray) -> jnp.ndarray:
 def velocity_to_world(v_k: jnp.ndarray, e: jnp.ndarray) -> jnp.ndarray:
     """(..., 2N) DOFs + bases e (N, 2, 3) -> world vectors (..., N, 3)."""
     c = split_components(v_k)
-    return jnp.einsum("...na,nad->...nd", c, e)
+    return jnp.einsum("...na,nad->...nd", c, e, precision=_HIGHEST)
 
 
 def velocity_to_complex(v_k: jnp.ndarray) -> jnp.ndarray:

@@ -48,168 +48,34 @@ def fix_signs(u: jnp.ndarray, vt: jnp.ndarray, n_modes: int):
 
 
 @partial(jax.jit, static_argnames=("n_modes",))
-def _svd_complex_parts(v_k: jnp.ndarray, n_modes: int | None):
-    """Complex SVD as ONE real-I/O program: the complex movie and factors
-    exist only inside the compiled program — this TPU backend cannot move
-    complex buffers across the host boundary (utils.precision), so u/vt
-    return as (real, imag) pairs."""
-    from manifold_flow_tpu.utils.precision import complex_dtype
-
+def _svd_complex(v_k: jnp.ndarray, n_modes: int | None):
     movie = velocity_to_complex(v_k)
-    movie = movie.astype(complex_dtype(movie.dtype))
     u, s, vt = jnp.linalg.svd(movie, full_matrices=False)
     k = s.shape[0] if n_modes is None else n_modes
     u, vt = fix_signs(u, vt, k)
     pct, pct2 = mode_percentages(s)
-    return (u[:, :k].real, u[:, :k].imag, s[:k],
-            vt[:k].real, vt[:k].imag, pct[:k], pct2[:k])
-
-
-@partial(jax.jit, static_argnames=("n_modes",))
-def _svd_complex_parts_gram(v_k: jnp.ndarray, n_modes: int | None):
-    """Complex SVD with NO complex tensors at all, for TPU: the compiler
-    SIGABRTs on complex-SVD HLO, so the left modes come from the real
-    symmetric embedding of the Hermitian Gram matrix.
-
-    For M = A + iB (T, N): G = M M^H = S1 + i S2 with S1 = AA^T + BB^T
-    (symmetric), S2 = BA^T - AB^T (antisymmetric). The real embedding
-    H = [[S1, -S2], [S2, S1]] (2T, 2T) has each eigenvalue sigma^2 of G
-    twice, and ANY unit eigenvector (p; q) of a pair maps to a valid unit
-    complex eigenvector u = p + iq (the pair subspace is exactly the complex
-    phase freedom). Right modes follow as vt = diag(1/sigma) u^H M via real
-    matmuls. Gram squaring halves the attainable precision of small
-    singular values (fine for mode-energy analysis; the CPU path keeps
-    exact LAPACK SVD parity).
-    """
-    from manifold_flow_tpu.utils.precision import complex_dtype
-
-    rdt = jnp.dtype(complex_dtype(jnp.complex128 if v_k.dtype == jnp.float64
-                                  else jnp.complex64))
-    rdt = jnp.float32 if rdt == jnp.complex64 else jnp.float64
-    t = v_k.shape[0]
-    n = v_k.shape[-1] // 2
-    n_keep = min(t, n)                                # rank bound, as in SVD
-    a = v_k[:, :n].astype(rdt)
-    b = v_k[:, n:].astype(rdt)
-    s1 = a @ a.T + b @ b.T
-    s2 = b @ a.T - a @ b.T
-    h = jnp.block([[s1, -s2], [s2, s1]])
-    lam, vec = jnp.linalg.eigh(h)                     # ascending
-    lam = lam[::-1]
-    vec = vec[:, ::-1]
-
-    # Each complex eigenvalue appears TWICE in H, and under (near-)degenerate
-    # singular values eigh returns an arbitrary basis of the doubled group —
-    # taking every other column can pick two images of the SAME complex mode
-    # and drop another. Instead, walk all 2T candidates in descending order
-    # and greedily complex-orthogonalize: a candidate whose residual against
-    # the already-selected complex span is negligible is a J-pair duplicate
-    # (or spans nothing new within its degenerate group) and is skipped.
-    cand_re = vec[:t]                                 # (T, 2T)
-    cand_im = vec[t:]
-    eps_sel = 1e-3
-
-    def body(state, j):
-        ure, uim, cnt, sig = state
-        cre = cand_re[:, j]
-        cim = cand_im[:, j]
-        # alpha = U^H c with complex U = ure + i uim (zero columns inert).
-        ar = ure.T @ cre + uim.T @ cim
-        ai = ure.T @ cim - uim.T @ cre
-        rre = cre - (ure @ ar - uim @ ai)
-        rim = cim - (ure @ ai + uim @ ar)
-        nrm = jnp.sqrt(jnp.sum(rre * rre + rim * rim))
-        take = (nrm > eps_sel) & (cnt < n_keep)
-        inv = 1.0 / jnp.where(nrm > 0, nrm, 1.0)
-        slot = jnp.minimum(cnt, n_keep - 1)
-        col = jax.nn.one_hot(slot, n_keep, dtype=rdt) * take
-        ure = ure + (rre * inv)[:, None] * col[None, :]
-        uim = uim + (rim * inv)[:, None] * col[None, :]
-        sig = sig + jnp.sqrt(jnp.maximum(lam[j], 0.0)) * col
-        return (ure, uim, cnt + take.astype(jnp.int32), sig), None
-
-    zero_u = jnp.zeros((t, n_keep), rdt)
-    (p, q, _, s), _ = jax.lax.scan(
-        body, (zero_u, zero_u, jnp.int32(0), jnp.zeros((n_keep,), rdt)),
-        jnp.arange(2 * t))
-
-    # vt = diag(1/sigma) u^H M; zero rows for (numerically) zero sigma — the
-    # exact-SVD path returns arbitrary orthonormal rows there, but scaled
-    # rounding noise would be unbounded garbage.
-    good = s > jnp.finfo(rdt).eps * jnp.maximum(s[0], 1.0) * 10.0
-    inv = jnp.where(good, 1.0 / jnp.where(good, s, 1.0), 0.0)
-    vt_re = (p.T @ a + q.T @ b) * inv[:, None]
-    vt_im = (p.T @ b - q.T @ a) * inv[:, None]
-
-    k = n_keep if n_modes is None else min(n_modes, n_keep)
-    # fix_signs convention on the complex u = p + iq (ComplexMatrices:206-213).
-    sign = jnp.where(jnp.mean(p[:, :k], axis=0) < 0, -1.0, 1.0)
-    ur = p[:, :k] * sign
-    ui = q[:, :k] * sign
-    vr = vt_re[:k] * sign[:, None]
-    vi = vt_im[:k] * sign[:, None]
-    pct, pct2 = mode_percentages(s)
-    return ur, ui, s[:k], vr, vi, pct[:k], pct2[:k]
+    return SVDModes(u[:, :k], s[:k], vt[:k], pct[:k], pct2[:k])
 
 
 def decompose_complex(v_k: jnp.ndarray, n_modes: int | None = None) -> SVDModes:
-    """SVD of the complex movie (T, N) = V1 + i V2.
-
-    u/vt come back as HOST numpy complex arrays (recombined from real-plane
-    transfers — complex buffers cannot cross the TPU transfer boundary).
-    On TPU the decomposition runs via the all-real Gram embedding
-    (_svd_complex_parts_gram, f32); elsewhere via exact complex SVD."""
-    import numpy as np
-
-    from manifold_flow_tpu.utils.precision import on_tpu
-
-    parts_fn = _svd_complex_parts_gram if on_tpu() else _svd_complex_parts
-    ur, ui, s, vr, vi, pct, pct2 = parts_fn(v_k, n_modes)
-    u = np.asarray(ur) + 1j * np.asarray(ui)
-    vt = np.asarray(vr) + 1j * np.asarray(vi)
-    return SVDModes(u, s, vt, pct, pct2)
+    """SVD of the complex movie (T, N) = V1 + i V2 (exact LAPACK-class SVD,
+    one jitted program)."""
+    return _svd_complex(jnp.asarray(v_k), n_modes)
 
 
 @partial(jax.jit, static_argnames=("n_modes",))
-def _svd_concat_gram(v_k: jnp.ndarray, n_modes: int | None):
-    """Real SVD via the T x T Gram eigendecomposition, for TPU: the movie is
-    short-and-wide (T ~ 1e2 frames, 2N ~ 1e4 DOFs), so eigh(V V^T) plus one
-    back-projection costs a few MXU matmuls instead of the ~20x-emulated
-    f64 SVD of the full matrix. Runs in f32 (Gram squaring halves attainable
-    precision of SMALL singular values; leading mode energies — the S4
-    artifact — are f32-exact). Degenerate subspaces are the same gauge
-    freedom the exact SVD has; reconstruction is unaffected."""
-    x = v_k.astype(jnp.float32)
-    t = x.shape[0]
-    n_keep = min(t, x.shape[1])
-    lam, u = jnp.linalg.eigh(x @ x.T)                # ascending
-    lam = lam[::-1][:n_keep]
-    u = u[:, ::-1][:, :n_keep]
-    s = jnp.sqrt(jnp.maximum(lam, 0.0))
-    good = s > jnp.finfo(jnp.float32).eps * jnp.maximum(s[0], 1.0) * 10.0
-    inv = jnp.where(good, 1.0 / jnp.where(good, s, 1.0), 0.0)
-    vt = (u.T @ x) * inv[:, None]
-    k = n_keep if n_modes is None else min(n_modes, n_keep)
-    u, vt = fix_signs(u, vt, k)
-    pct, pct2 = mode_percentages(s)
-    return u[:, :k], s[:k], vt[:k], pct[:k], pct2[:k]
-
-
-def decompose_concat(v_k: jnp.ndarray, n_modes: int | None = None) -> SVDModes:
-    """SVD of the real concatenated movie (T, 2N) = [Re | Im].
-
-    Exact LAPACK SVD off-TPU; the Gram-eigendecomposition fast path on TPU
-    (_svd_concat_gram)."""
-    from manifold_flow_tpu.utils.precision import on_tpu
-
-    if on_tpu():
-        u, s, vt, pct, pct2 = _svd_concat_gram(v_k, n_modes)
-        return SVDModes(u, s, vt, pct, pct2)
+def _svd_concat(v_k: jnp.ndarray, n_modes: int | None):
     u, s, vt = jnp.linalg.svd(v_k, full_matrices=False)
     k = s.shape[0] if n_modes is None else n_modes
     u, vt = fix_signs(u, vt, k)
     pct, pct2 = mode_percentages(s)
     return SVDModes(u[:, :k], s[:k], vt[:k], pct[:k], pct2[:k])
+
+
+def decompose_concat(v_k: jnp.ndarray, n_modes: int | None = None) -> SVDModes:
+    """SVD of the real concatenated movie (T, 2N) = [Re | Im] (exact SVD,
+    one jitted program)."""
+    return _svd_concat(jnp.asarray(v_k), n_modes)
 
 
 def concat_modes_to_complex(vt: jnp.ndarray) -> jnp.ndarray:

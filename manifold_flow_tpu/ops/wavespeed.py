@@ -1,8 +1,8 @@
 """Wave-speed estimation from amplitude or phase movies.
 
-TPU redesign of S5_compute_wave_v.py: the reference's quadruple Python loops
-(time x vertex for projection, basis expression, modulus; S5:32-53, 97-118)
-collapse into batched einsums, and the per-vertex incident-cell loop
+Batched redesign of S5_compute_wave_v.py: the reference's quadruple Python
+loops (time x vertex for projection, basis expression, modulus; S5:32-53,
+97-118) collapse into batched einsums, and the per-vertex incident-cell loop
 (compute_grad_M_I, S5:136-171) becomes a triangle scatter-add.
 
 wave speed = temporal derivative / |tangential spatial gradient|
@@ -23,6 +23,9 @@ from manifold_flow_tpu.ops.phase import (
     temporal_gradient_phase,
 )
 
+# f32 contractions run at full f32 precision (no TF32 on GPUs).
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 @jax.jit
 def vertex_gradients(mesh: TriMesh, movie: jnp.ndarray) -> jnp.ndarray:
@@ -32,13 +35,14 @@ def vertex_gradients(mesh: TriMesh, movie: jnp.ndarray) -> jnp.ndarray:
     tri = mesh.triangles
     gw = mesh.grad_w.astype(movie.dtype)
     areas = mesh.areas.astype(movie.dtype)
-    grad_m = jnp.einsum("tmc,mcd->tmd", movie[:, tri], gw)   # (T, M, 3)
+    grad_m = jnp.einsum("tmc,mcd->tmd", movie[:, tri], gw,
+                        precision=_HIGHEST)  # (T, M, 3)
     weighted = grad_m * areas[None, :, None]
     t = movie.shape[0]
     m = tri.shape[0]
     # Gather-mode reduction over each vertex's incident cells (a triangle
     # incident to v contributes its gradient exactly once, matching the
-    # per-corner scatter in the reference; TPU scatter-add serializes).
+    # per-corner scatter in the reference).
     idx = jnp.where(mesh.vertex_cells < 0, m, mesh.vertex_cells)  # (N, C)
     wpad = jnp.concatenate(
         [weighted, jnp.zeros((t, 1, 3), weighted.dtype)], axis=1)

@@ -9,7 +9,7 @@ frames (utils/compute_optical_flow.py:152-194, SURVEY.md §2 P1). Here:
     (parallel.halo): each device holds only its block's DOF/iterate/
     preconditioner rows (~2N / n_mesh + halo) and the per-matvec collective
     is an all_gather of block-boundary values, not a full-DOF psum. Works
-    for both the f32/f64 CG path and the two-float32 refined path.
+    for both the f32/f64 CG path and the refined path.
 """
 
 from manifold_flow_tpu.parallel.analysis import (

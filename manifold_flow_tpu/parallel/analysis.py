@@ -1,11 +1,10 @@
 """Frames-sharded analysis stages (S3 detection, S5 wave speeds, S7 winding).
 
-The distributed story used to cover only the solve; a multi-chip production
-trial would have serialized every analysis stage on one chip (VERDICT r4
-weak #5). These wrappers shard the FRAME axis of the analysis ops over the
-('frames', ...) device mesh with jax.shard_map — the same layout the
-sharded solve uses, so a trial's velocity movie can stay frame-sharded from
-solve through analysis:
+The distributed story used to cover only the solve; a multi-device trial would
+have serialized every analysis stage on one device. These wrappers shard the
+FRAME axis of the analysis ops over the ('frames', ...) device mesh with
+jax.shard_map — the same layout the sharded solve uses, so a trial's velocity
+movie can stay frame-sharded from solve through analysis:
 
   * detection (ops.singularity.detect) is a pure per-frame map — zero
     communication, each shard detects its frame block; the pipeline entry
@@ -26,8 +25,8 @@ solve through analysis:
     LOCAL frame count).
 
 Compiled programs cache per (mesh identity, device mesh, static params) —
-a fresh jit(shard_map(...)) per call would re-trace (and on a remote
-compile service, recompile) every trial of a cohort sweep.
+a fresh jit(shard_map(...)) per call would re-trace every trial of a
+cohort sweep.
 
 The reference parallelized only the solve (multiprocessing.Pool,
 utils/compute_optical_flow.py:152-194); these stages ran serial loops
@@ -97,8 +96,8 @@ def _detect_program(mesh: TriMesh, device_mesh, eps: float, with_counts):
         def prog(v_pad, t: int):
             # ONE program: sharded per-frame detection, padding-frame
             # slice-off, and (optionally) the capacity-sizing counts
-            # reduction — eager composition would pay the remote dispatch
-            # latency per op (CLAUDE.md; detect_with_counts' rationale).
+            # reduction — eager composition would pay the dispatch latency
+            # per op (detect_with_counts' rationale).
             field = sharded(v_pad)
             field = sing_ops.SingularityField(
                 *(leaf[:t] for leaf in field))
@@ -234,7 +233,6 @@ def sharded_winding_movie(mesh: TriMesh, v_world, points, valid,
     import numpy as np
 
     from manifold_flow_tpu.utils.io import start_host_copy
-    from manifold_flow_tpu.utils.precision import analysis_dtype
 
     t, s = np.shape(points)[0], np.shape(points)[1]
     vmask = np.asarray(valid, dtype=bool)
@@ -254,7 +252,6 @@ def sharded_winding_movie(mesh: TriMesh, v_world, points, valid,
     uniq_p, u_idx = wind_ops.snap_and_dedup_centers(mesh, points, vmask,
                                                     centers=centers)
     v = jnp.asarray(v_world)
-    v = v.astype(analysis_dtype(v.dtype))
     u_cap = len(uniq_p)
     parts = []
     for lo in range(0, u_cap, chunk):

@@ -16,10 +16,9 @@ x), plus tiny psums for CG dot products. Triangles replicated on several
 shards carry a single ASSEMBLY owner for quantities that psum over the mesh
 axis (the coarse-grid matrices) so nothing double-counts.
 
-The layout also lifts the replicated scheme's restriction on the refined
-(two-float32) solver: halo exchange copies values exactly (no summation), so
-compensated DF pairs survive it — large meshes get mesh-sharded memory AND
-direct-solver accuracy (solve/refine.py).
+The refined solver (f32 inner PCG + f64 residuals, solve/refine.py) runs
+on the same layout: halo exchange copies values exactly (no summation), so
+large meshes get mesh-sharded memory AND direct-solver accuracy.
 
 Per-device working set (solve loop): x, r, z, p at (T_local, 2 V_own) plus a
 (T_local, H, 2) halo buffer — asserted < N in tests/test_parallel.py.
@@ -28,7 +27,6 @@ Per-device working set (solve loop): x, r, z, p at (T_local, 2 V_own) plus a
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +35,9 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from manifold_flow_tpu.geometry.mesh import TriMesh
 from manifold_flow_tpu.kernels import reduce as kreduce
+
+# f32 contractions run at full f32 precision (no TF32 on GPUs).
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def partition_vertices(points: np.ndarray, n_shards: int) -> np.ndarray:
@@ -263,32 +264,28 @@ class HaloOperator:
                                        metadata=dict(static=True))
 
     def exchange(self, x: jnp.ndarray) -> jnp.ndarray:
-        """Owned (T, 2 Vo, ...) -> full local (T, 2 Vl, ...) via halo gather.
+        """Owned (T, 2 Vo) -> full local (T, 2 Vl) via halo gather.
 
-        A trailing component axis (e.g. DF hi/lo pairs stacked) rides along
-        untouched. Traffic per call: (T, B, 2 * k) floats all_gathered over
-        the mesh axis — the block boundary, not the DOF space.
+        Traffic per call: (T, 2, B) values all_gathered over the mesh
+        axis — the block boundary, not the DOF space.
         """
         vo, vh = self.v_owned, self.v_halo
-        lead = x.shape[:1]
-        tail = x.shape[2:]
-        xs = x.reshape(*lead, 2, vo, *tail)
-        pub = jnp.take(xs, self.send_idx, axis=2)            # (T, 2, B, ...)
-        buf = jax.lax.all_gather(pub, self.axis_name)        # (S, T, 2, B,..)
-        buf = jnp.moveaxis(buf, 0, 2)                        # (T, 2, S, B,..)
-        buf = buf.reshape(*lead, 2, -1, *tail)               # (T, 2, S*B,...)
-        zero = jnp.zeros((*lead, 2, 1, *tail), dtype=x.dtype)
-        buf = jnp.concatenate([buf, zero], axis=2)
-        halo = jnp.take(buf, self.halo_src, axis=2)          # (T, 2, H, ...)
-        full = jnp.concatenate([xs, halo], axis=2)           # (T, 2, Vl, ...)
-        return full.reshape(*lead, 2 * (vo + vh), *tail)
+        t = x.shape[0]
+        xs = x.reshape(t, 2, vo)
+        pub = jnp.take(xs, self.send_idx, axis=2)            # (T, 2, B)
+        buf = jax.lax.all_gather(pub, self.axis_name)        # (S, T, 2, B)
+        buf = jnp.moveaxis(buf, 0, 2).reshape(t, 2, -1)      # (T, 2, S*B)
+        buf = jnp.concatenate([buf, jnp.zeros((t, 2, 1), x.dtype)], axis=2)
+        halo = jnp.take(buf, self.halo_src, axis=2)          # (T, 2, H)
+        full = jnp.concatenate([xs, halo], axis=2)           # (T, 2, Vl)
+        return full.reshape(t, 2 * (vo + vh))
 
     def local_contributions(self, x_full: jnp.ndarray) -> jnp.ndarray:
         """Per-triangle products (T, Ml, 6) of A x on the local block."""
         t = x_full.shape[0]
         ml = self.dof.shape[0]
         xg = x_full[:, self.dof]                             # (T, Ml, 6)
-        y2 = jnp.einsum("mij,tmj->tmi", self.blocks2, xg)
+        y2 = jnp.einsum("mij,tmj->tmi", self.blocks2, xg, precision=_HIGHEST)
         xg32 = xg.reshape(t, ml, 3, 2)
         s = jnp.sum(self.g * xg32, axis=-1)
         stot = jnp.sum(s, axis=-1, keepdims=True)
@@ -313,8 +310,10 @@ def _local_factors(potentials, d_i, tri_corners, grad_l, basis_c):
     """Shard-local g (T, Ml, 3, 2) and RHS scale inputs from replicated
     (T, N+1) movies (zero pad column) and local triangle geometry."""
     i_tri = potentials[:, tri_corners]                       # (T, Ml, 3)
-    grad_m = jnp.einsum("tmc,mcd->tmd", i_tri, grad_l)       # (T, Ml, 3)
-    g = jnp.einsum("tmd,mcad->tmca", grad_m, basis_c)        # (T, Ml, 3, 2)
+    grad_m = jnp.einsum("tmc,mcd->tmd", i_tri, grad_l,
+                        precision=_HIGHEST)  # (T, Ml, 3)
+    g = jnp.einsum("tmd,mcad->tmca", grad_m, basis_c,
+                   precision=_HIGHEST)  # (T, Ml, 3, 2)
     di_tri = d_i[:, tri_corners]                             # (T, Ml, 3)
     return g, di_tri
 
@@ -332,10 +331,10 @@ def _diag_owned(g, basis_c, grad_l, areas_l, lambda_, base3):
     from manifold_flow_tpu.fem.operator import invert_2x2_blocks
 
     et = basis_c.astype(g.dtype)
-    ee = jnp.einsum("mcad,mcbd->mcab", et, et)
+    ee = jnp.einsum("mcad,mcbd->mcab", et, et, precision=_HIGHEST)
     gg = jnp.sum(grad_l * grad_l, axis=-1).astype(g.dtype)
     reg = ee * (gg * areas_l[:, None])[:, :, None, None]
-    dat = jnp.einsum("tmca,tmcb->tmcab", g, g) \
+    dat = jnp.einsum("tmca,tmcb->tmcab", g, g, precision=_HIGHEST) \
         * (areas_l / 6.0)[:, None, None, None]
     contrib = lambda_ * reg[None] + dat                      # (T, Ml, 3, 2, 2)
     t, ml = contrib.shape[0], contrib.shape[1]
@@ -381,8 +380,9 @@ def _local_geometry(mesh: TriMesh, part: HaloPartition, dtype):
     basis_pad = jnp.concatenate(
         [mesh.basis, jnp.zeros((1, 2, 3), mesh.basis.dtype)])
     basis_c = basis_pad[part.tri_corners]                    # (S, Ml, 3, 2, 3)
-    gg = jnp.einsum("smid,smjd->smij", grad_l, grad_l)
-    ee = jnp.einsum("smiad,smjbd->smiajb", basis_c, basis_c)
+    gg = jnp.einsum("smid,smjd->smij", grad_l, grad_l, precision=_HIGHEST)
+    ee = jnp.einsum("smiad,smjbd->smiajb", basis_c, basis_c,
+                    precision=_HIGHEST)
     blocks2 = (ee * gg[:, :, :, None, :, None]
                * areas_l[:, :, None, None, None, None])
     s, ml = part.n_shards, part.m_local
@@ -460,7 +460,8 @@ def halo_compute_velocity_fields(
         if tables is not None:
             ebar = mesh.basis[tables.seeds].astype(dtype)    # (Nc, 2, 3)
             r_blk = jnp.einsum("nad,nbd->nab", mesh.basis.astype(dtype),
-                               ebar[tables.agg])             # (N, 2, 2)
+                               ebar[tables.agg],
+                               precision=_HIGHEST)           # (N, 2, 2)
             r_pad = jnp.concatenate(
                 [r_blk, jnp.zeros((1, 2, 2), dtype)])
             rc_l = r_pad[part.tri_corners]                   # (S, Ml, 3, 2, 2)
@@ -647,7 +648,7 @@ class HaloTwoLevel:
         rc = jnp.stack([rc1, rc2], axis=-1).reshape(t, -1)   # (T, 2Nc)
         rc = jax.lax.psum(rc, self.axis_name)
         yc = jnp.einsum("tij,tj->ti", self.ac_inv, rc,
-                        preferred_element_type=rc.dtype)
+                        preferred_element_type=rc.dtype, precision=_HIGHEST)
         ycr = yc.reshape(t, self.n_coarse, 2)
         ya = jnp.take(ycr[:, :, 0], self.agg, axis=1)        # (T, Vo)
         yb = jnp.take(ycr[:, :, 1], self.agg, axis=1)
@@ -666,13 +667,16 @@ def _coarse_inverse_local(g, rc_l, blocks2_l, areas_l, asm_w, lam, plan,
     t, ml = g.shape[0], g.shape[1]
     w_asm = asm_w.astype(dtype)
     b2 = blocks2_l.reshape(ml, 3, 2, 3, 2)
-    b2c = jnp.einsum("mcax,mcadb,mdby->mcxdy", rc_l, b2, rc_l) \
+    b2c = jnp.einsum("mcax,mcadb,mdby->mcxdy", rc_l, b2, rc_l,
+                     precision=_HIGHEST) \
         * w_asm[:, None, None, None, None]
     a2c = kreduce.apply_reduce(plan, b2c.reshape(1, -1))[0]
-    rg = jnp.einsum("tmca,mcab->tmcb", g, rc_l)              # (T, Ml, 3, 2)
+    rg = jnp.einsum("tmca,mcab->tmcb", g, rc_l,
+                    precision=_HIGHEST)  # (T, Ml, 3, 2)
     w = (jnp.ones((3, 3), dtype) + jnp.eye(3, dtype=dtype)) \
         * (areas_l * w_asm)[:, None, None] / 12.0
-    b1c = jnp.einsum("tmxy,tmuv,mxu->tmxyuv", rg, rg, w)
+    b1c = jnp.einsum("tmxy,tmuv,mxu->tmxyuv", rg, rg, w,
+                     precision=_HIGHEST)
     a1c = kreduce.apply_reduce(plan, b1c.reshape(t, -1))
     ac = (a1c + lam * a2c[None]).reshape(t, nc2, nc2)
     ac = jax.lax.psum(ac, "mesh")
@@ -684,73 +688,14 @@ def _coarse_inverse_local(g, rc_l, blocks2_l, areas_l, asm_w, lam, plan,
     linv = jax.lax.linalg.triangular_solve(chol, eye, left_side=True,
                                            lower=True)
     ac_inv = jnp.einsum("tki,tkj->tij", linv, linv,
-                        preferred_element_type=dtype)
+                        preferred_element_type=dtype, precision=_HIGHEST)
     bad = jnp.any(jnp.isnan(linv), axis=(-2, -1), keepdims=True)
     return jnp.where(bad, jnp.zeros_like(ac_inv), ac_inv)
 
 
 # --------------------------------------------------------------------------
-# Refined (two-float32) solve under the halo partition
+# Refined solve under the halo partition
 # --------------------------------------------------------------------------
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class HaloDFOperator:
-    """Compensated two-float32 A = a1 + lambda a2 on one vertex block.
-
-    Halo exchange moves (hi, lo) pairs verbatim (stacked on a trailing axis)
-    — copies are exact, so DF precision survives the collective; this is what
-    the old replicated-psum scheme could not do (psum reassociates sums).
-    Mirrors fem.df_operator.DFFlowOperator with local tables.
-    """
-
-    op32: HaloOperator      # f32 tables/components (hi parts + int tables)
-    blocks2: "object"       # DF (Ml, 6, 6)
-    g: "object"             # DF (T, Ml, 3, 2)
-    w_scale: "object"       # DF (Ml,)
-    lambda_: "object"       # DF ()
-
-    def matvec(self, x):
-        from manifold_flow_tpu.kernels import df32
-        from manifold_flow_tpu.kernels.df32 import DF
-
-        op = self.op32
-        full = op.exchange(jnp.stack([x.hi, x.lo], axis=-1))  # (T, 2Vl, 2)
-        xf = DF(full[..., 0], full[..., 1])
-        t = x.hi.shape[0]
-        ml = op.dof.shape[0]
-        xg = df32.gather(xf, op.dof, axis=1)                  # (T, Ml, 6)
-        y2 = df32.dot_along(
-            DF(self.blocks2.hi[None], self.blocks2.lo[None]),
-            DF(xg.hi[:, :, None, :], xg.lo[:, :, None, :]), axis=3)
-        xg32 = DF(xg.hi.reshape(t, ml, 3, 2), xg.lo.reshape(t, ml, 3, 2))
-        s = df32.dot_along(self.g, xg32, axis=3)              # (T, Ml, 3)
-        stot = df32.sum_along(s, axis=2)
-        splus = df32.add(s, DF(stot.hi[:, :, None], stot.lo[:, :, None]))
-        w = df32.mul(DF(self.w_scale.hi[None, :, None],
-                        self.w_scale.lo[None, :, None]), splus)
-        y1 = df32.mul(self.g, DF(w.hi[..., None], w.lo[..., None]))
-        lam = DF(self.lambda_.hi[..., None, None, None],
-                 self.lambda_.lo[..., None, None, None])
-        y_loc = df32.add(df32.mul(lam, y2),
-                         DF(y1.hi.reshape(t, ml, 6), y1.lo.reshape(t, ml, 6)))
-        flat = DF(
-            jnp.concatenate([y_loc.hi.reshape(t, -1),
-                             jnp.zeros((t, 2), jnp.float32)], axis=1),
-            jnp.concatenate([y_loc.lo.reshape(t, -1),
-                             jnp.zeros((t, 2), jnp.float32)], axis=1))
-        c0 = df32.gather(flat, op.base6, axis=1)              # (T, Vo, C)
-        c1 = df32.gather(flat, op.base6 + 1, axis=1)
-        s0 = df32.sum_along(c0, axis=2)
-        s1 = df32.sum_along(c1, axis=2)
-        return DF(jnp.concatenate([s0.hi, s1.hi], axis=-1),
-                  jnp.concatenate([s0.lo, s1.lo], axis=-1))
-
-    def residual(self, f, x):
-        from manifold_flow_tpu.kernels import df32
-
-        return df32.sub(f, self.matvec(x))
-
-
 def halo_refined_velocity_fields(
     mesh: TriMesh,
     potentials: jnp.ndarray,
@@ -764,11 +709,9 @@ def halo_refined_velocity_fields(
     precond: str = "auto",
 ):
     """Mesh-memory-sharded refined solve: f32 halo PCG inner iterations +
-    two-float32 halo residuals, converging to direct-solver accuracy
+    f64 halo residuals, converging to direct-solver accuracy
     (solve/refine.py semantics on sharded DOF blocks). Requires f64 inputs.
     """
-    from manifold_flow_tpu.kernels import df32
-    from manifold_flow_tpu.kernels.df32 import DF
     from manifold_flow_tpu.solve.api import (
         TWO_LEVEL_MIN_VERTICES,
         VelocityResult,
@@ -802,8 +745,8 @@ def halo_refined_velocity_fields(
     lam64 = jnp.asarray(lambda_, jnp.float64)
     lam32 = jnp.asarray(lambda_, jnp.float32)
     # Per-outer-step inner tolerances (solve/refine.py semantics: scalar =
-    # every step; a sequence's last entry repeats — tight-first schedules
-    # measured best, see solve_refined's docstring).
+    # every step; a sequence's last entry repeats — tight-first schedules,
+    # see solve_refined's docstring).
     from manifold_flow_tpu.solve.refine import (
         DEFAULT_INNER_TOL, as_inner_schedule)
 
@@ -824,7 +767,7 @@ def halo_refined_velocity_fields(
             ebar = mesh.basis[tables.seeds].astype(jnp.float32)
             r_blk = jnp.einsum(
                 "nad,nbd->nab", mesh.basis.astype(jnp.float32),
-                ebar[tables.agg])
+                ebar[tables.agg], precision=_HIGHEST)
             r_pad = jnp.concatenate(
                 [r_blk, jnp.zeros((1, 2, 2), jnp.float32)])
             rc_l = r_pad[part.tri_corners]
@@ -837,35 +780,28 @@ def halo_refined_velocity_fields(
 
         def local_solve(tc, gr, ar, bc, b2, dof, b6, b3, snd, hsrc, asw,
                         pp, dd, *cz):
-            # f64 assembly (one-time), split to DF for the residual operator.
+            # f64 operator (the residual) and its f32 rounding (the inner
+            # PCG); the halo exchange copies values exactly in either dtype.
             g64, di_tri64 = _local_factors(pp, dd, tc[0], gr[0], bc[0])
-            op64_tables = HaloOperator(
+            op64 = HaloOperator(
                 dof=dof[0], blocks2=b2[0], g=g64, w_scale=ar[0] / 12.0,
                 lambda_=lam64, base6=b6[0], send_idx=snd[0],
                 halo_src=hsrc[0], v_owned=vo, v_halo=vh)
-            f64 = _rhs_owned(op64_tables, g64, di_tri64, ar[0])
-            g_df = df32.from_f64(g64)
-            b2_df = df32.from_f64(b2[0])
-            w_df = df32.from_f64(ar[0] / 12.0)
-            f_df = df32.from_f64(f64)
-            op32 = HaloOperator(
-                dof=dof[0], blocks2=b2_df.hi, g=g_df.hi, w_scale=w_df.hi,
-                lambda_=lam32, base6=b6[0], send_idx=snd[0],
-                halo_src=hsrc[0], v_owned=vo, v_halo=vh)
-            op_df = HaloDFOperator(
-                op32=op32, blocks2=b2_df, g=g_df, w_scale=w_df,
-                lambda_=df32.from_f64(lam64))
-            diag = _diag_owned(g_df.hi, bc[0].astype(jnp.float32),
-                               gr[0].astype(jnp.float32),
-                               ar[0].astype(jnp.float32), lam32, b3[0])
+            f64 = _rhs_owned(op64, g64, di_tri64, ar[0])
+            f32 = jnp.float32
+            op32 = dataclasses.replace(
+                op64, blocks2=op64.blocks2.astype(f32), g=g64.astype(f32),
+                w_scale=op64.w_scale.astype(f32), lambda_=lam32)
+            diag = _diag_owned(op32.g, bc[0].astype(f32), gr[0].astype(f32),
+                               ar[0].astype(f32), lam32, b3[0])
             if cz:
                 rc_s, rbo_s, mem_s, agg_s, pp_l, sg_l, dg_l = cz
                 plan = kreduce.ReducePlan(
                     pad_perm=pp_l[0], slot_groups=sg_l[0],
                     dense_gather=dg_l[0], n_vals=n_vals, group=group)
                 ac_inv = _coarse_inverse_local(
-                    g_df.hi, rc_s[0], b2_df.hi, w_df.hi * 12.0, asw[0],
-                    lam32, plan, tables.n_coarse)
+                    op32.g, rc_s[0], op32.blocks2, ar[0].astype(f32),
+                    asw[0], lam32, plan, tables.n_coarse)
                 pre = HaloTwoLevel(
                     diag=diag, r_blk=rbo_s[0], agg=agg_s[0],
                     members=mem_s[0], ac_inv=ac_inv,
@@ -877,30 +813,29 @@ def halo_refined_velocity_fields(
                 return jnp.sqrt(jax.lax.psum(jnp.sum(v * v, axis=-1),
                                              "mesh"))
 
-            fnorm = pnorm(f_df.hi)
-            target = (tol * jnp.maximum(fnorm, jnp.finfo(jnp.float32).tiny)
-                      ).astype(jnp.float32)
+            fnorm = pnorm(f64)
+            target = tol * jnp.maximum(fnorm, jnp.finfo(f32).tiny)
 
             def cond(state):
                 _, r, _, step = state
-                return (step < refine_steps) & jnp.any(pnorm(r.hi) > target)
+                return (step < refine_steps) & jnp.any(pnorm(r) > target)
 
             def body(state):
                 x, r, total, step = state
                 step_tol = jnp.asarray(inner_sched)[
                     jnp.minimum(step, inner_sched.shape[0] - 1)]
-                inner = solve_cg(op32, r.hi, precond=pre, tol=step_tol,
-                                 max_iter=max_iter, psum_axis="mesh")
-                x = df32.add(x, df32.from_f32(inner.x))
-                r = op_df.residual(f_df, x)
+                inner = solve_cg(op32, r.astype(f32), precond=pre,
+                                 tol=step_tol, max_iter=max_iter,
+                                 psum_axis="mesh")
+                x = x + inner.x.astype(x.dtype)
+                r = f64 - op64.matvec(x)
                 return x, r, total + inner.iterations, step + 1
 
-            zero = DF(jnp.zeros_like(f_df.hi), jnp.zeros_like(f_df.hi))
             x, r, total, _ = jax.lax.while_loop(
-                cond, body, (zero, f_df, jnp.int32(0), jnp.int32(0)))
-            rn = pnorm(r.hi)
-            return (df32.to_f64(x), total[None], rn.astype(jnp.float64),
-                    rn <= target)
+                cond, body,
+                (jnp.zeros_like(f64), f64, jnp.int32(0), jnp.int32(0)))
+            rn = pnorm(r)
+            return x, total[None], rn, rn <= target
 
         ms = P("mesh")
         shard = jax.shard_map(

@@ -6,7 +6,8 @@ Here the equivalent is a real SPMD runtime: `initialize()` wires up
 jax.distributed from standard cluster environment variables (Slurm/OpenMPI
 auto-detection is built into JAX), after which `jax.devices()` spans every
 host and the ('frames', 'mesh') device mesh in parallel.partition scales
-across hosts — frame shards ride DCN, mesh-axis psums ride ICI.
+across hosts — frame shards ride the network between hosts, mesh-axis
+collectives the links between a host's devices.
 """
 
 from __future__ import annotations
@@ -22,8 +23,15 @@ def initialize(coordinator_address: str | None = None,
                local_device_ids=None) -> None:
     """Initialize jax.distributed (no-op if already initialized).
 
-    With no arguments, JAX auto-detects Slurm / Open MPI / TPU pod
-    environments. Call before any other JAX API on every host.
+    With no arguments, JAX auto-detects Slurm / Open MPI environments;
+    elsewhere pass `coordinator_address` ('host:port'), `num_processes` and
+    `process_id` explicitly. Call before any other JAX API on every host.
+
+    Devices per process: one process per host drives all of that host's
+    GPUs (the default, and what run_trial's device meshes assume). A
+    launch that starts one process per GPU must pass `local_device_ids`
+    (e.g. [local_rank]) so each process claims only its own card — JAX
+    reserves most of a card's memory in every process that opens it.
     """
     import jax
 

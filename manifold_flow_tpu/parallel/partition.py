@@ -2,14 +2,13 @@
 
 Sharding layout:
   * per-frame data (a1 factors g, RHS f, CG iterates) shard the frame axis
-    over 'frames' — pure data parallelism, zero communication (the TPU-native
+    over 'frames' — pure data parallelism, zero communication (the
     replacement for the reference's multiprocessing pool,
     utils/compute_optical_flow.py:152-194);
   * the DOF space shards over 'mesh' in owned vertex blocks with halo
     exchange (parallel.halo): per-device memory ~ 2N / n_mesh + halo, one
     boundary all_gather per matvec. Both the f32/f64 CG path and the
-    two-float32 refined path support the mesh axis (halo copies are exact,
-    unlike the old replicated psum scheme, so DF pairs survive).
+    refined path support the mesh axis (halo copies are exact).
 
 CG control flow stays in lockstep across the 'mesh' axis because CG dot
 products psum over it; different frame-shards may run different iteration
@@ -69,7 +68,7 @@ def sharded_compute_velocity_fields(
     With n_mesh_shards > 1 both methods dispatch to the halo-exchange
     vertex-block partition (parallel.halo) — the mesh axis shards memory,
     not just FLOPs. With n_mesh_shards == 1 frames are simply data-parallel:
-    each shard runs the single-chip solver on its frame slice with zero
+    each shard runs the single-device solver on its frame slice with zero
     communication (the scaling structure of the reference's frame pool).
     """
     if precond not in ("jacobi", "two_level", "auto"):
@@ -105,7 +104,7 @@ def sharded_compute_velocity_fields(
 def _frames_sharded_cg(mesh, potentials, times, device_mesh, lambda_, tol,
                        max_iter, precond: str = "auto"):
     """Frame-sharded batched PCG: frames are independent systems, so each
-    shard runs the full single-chip operator on its slice, zero comm."""
+    shard runs the full single-device operator on its slice, zero comm."""
     from manifold_flow_tpu.fem import assembly
     from manifold_flow_tpu.fem.operator import make_operator
     from manifold_flow_tpu.solve.api import TWO_LEVEL_MIN_VERTICES
@@ -165,21 +164,24 @@ def _frames_sharded_cg(mesh, potentials, times, device_mesh, lambda_, tol,
 def _frames_sharded_refined(mesh, potentials, times, device_mesh, lambda_,
                             tol, max_iter, precond: str = "auto",
                             inner_tol=DEFAULT_INNER_TOL):
-    """Frame-sharded two-float32 refined solve (f64-grade accuracy).
+    """Frame-sharded refined solve (f32 inner PCG + f64 residuals).
 
     Assembly is replicated (cheap relative to the solve); each frame shard
     runs its own refinement loop to convergence with zero communication —
     the scaling structure of the reference's frame pool, at direct-solver
     accuracy."""
-    from manifold_flow_tpu.fem.df_operator import DFFlowOperator, make_df_operator
-    from manifold_flow_tpu.kernels.df32 import DF
+    import dataclasses as _dc
+
+    from manifold_flow_tpu.fem.operator import make_operator
+    from manifold_flow_tpu.solve.api import build_rhs
     from manifold_flow_tpu.solve.refine import refine_loop
 
     potentials = jnp.asarray(potentials)
     times = jnp.asarray(times, dtype=potentials.dtype)
     nf = device_mesh.shape["frames"]
-    op_df, f_df = make_df_operator(mesh, potentials, times, lambda_)
-    t = f_df.hi.shape[0]
+    op = make_operator(mesh, potentials, lambda_)
+    f = build_rhs(mesh, op, potentials, times)
+    t = f.shape[0]
 
     tables = None
     if precond == "auto":
@@ -197,28 +199,21 @@ def _frames_sharded_refined(mesh, potentials, times, device_mesh, lambda_,
                 raise
             tables = None  # traced topology: fall back to block-Jacobi
 
-    g_hi = _pad_axis(op_df.g.hi, 0, nf)
-    g_lo = _pad_axis(op_df.g.lo, 0, nf)
-    f_hi = _pad_axis(f_df.hi, 0, nf)
-    f_lo = _pad_axis(f_df.lo, 0, nf)
+    g_pad = _pad_axis(op.g, 0, nf)
+    f_pad = _pad_axis(f, 0, nf)
 
-    def local_solve(gh, gl, fh, fl):
-        op_l = DFFlowOperator(
-            dof=op_df.dof, gather_base=op_df.gather_base,
-            blocks2=op_df.blocks2, g=DF(gh, gl), w_scale=op_df.w_scale,
-            lambda_=op_df.lambda_, n_dof=op_df.n_dof)
-        res = refine_loop(mesh, op_l, DF(fh, fl), tol=tol,
-                          inner_tol=inner_tol,
-                          max_iter=max_iter, coarse_tables=tables)
+    def local_solve(g_l, f_l):
+        res = refine_loop(mesh, _dc.replace(op, g=g_l), f_l, tol=tol,
+                          inner_tol=inner_tol, max_iter=max_iter,
+                          coarse_tables=tables)
         return res.x, res.iterations[None], res.residual, res.converged
 
     spec = P("frames")
     shard = jax.shard_map(
         local_solve, mesh=device_mesh,
-        in_specs=(spec, spec, spec, spec),
-        out_specs=(spec, spec, spec, spec),
+        in_specs=(spec, spec), out_specs=(spec, spec, spec, spec),
         check_vma=False)
-    x, iters, resid, conv = jax.jit(shard)(g_hi, g_lo, f_hi, f_lo)
+    x, iters, resid, conv = jax.jit(shard)(g_pad, f_pad)
     return VelocityResult(
         v_k=x[:t], e=mesh.basis,
         iterations=jnp.max(iters), residual=resid[:t], converged=conv[:t])

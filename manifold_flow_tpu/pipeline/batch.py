@@ -50,7 +50,7 @@ logger = logging.getLogger(__name__)
 # Stage order within a trial: streamline runs right after flow so its ~97
 # per-frame pkl.bz2 artifact compressions (the largest write burst) overlap
 # the decompose/wavespeed/winding device waits instead of landing in the
-# end-of-trial writer drain (VERDICT r3 #5). Artifact dependencies are
+# end-of-trial writer drain. Artifact dependencies are
 # unaffected: everything after flow needs only the in-memory velocity.
 DEVICE_STAGES = ("flow", "streamline", "decompose", "wavespeed", "winding")
 # The amplitude wave-speed variant (S5_compute_wave_v.py:14-58) exists in the
@@ -221,14 +221,13 @@ def selected_channel_names(channels_path, stim_pair=()):
     Conditions (S2_interpolate.py:116-123): type == ECOG, status == good,
     status_description == included, group == grid. The stimulated channels
     are then removed in order (S2:125-135). Returns (names, excluded)."""
-    import pandas as pd
+    from manifold_flow_tpu.utils import io
 
-    table = pd.read_csv(channels_path, sep="\t")
-    keep = ((table.get("type") == "ECOG")
-            & (table.get("status") == "good")
-            & (table.get("status_description") == "included")
-            & (table.get("group") == "grid"))
-    names = table.loc[keep, "name"].dropna().astype(str).tolist()
+    want = {"type": "ECOG", "status": "good",
+            "status_description": "included", "group": "grid"}
+    names = [r["name"] for r in io.read_tsv(channels_path)
+             if all(r.get(k) == v for k, v in want.items())
+             and r.get("name") is not None]
     excluded = []
     for stim in stim_pair:
         if stim in names:
@@ -440,16 +439,16 @@ def run_trial(trial: TrialRef, config, stages: Sequence[str] = DEVICE_STAGES,
 
     `timings`, when given, receives wall seconds per executed stage plus a
     'flow_detail' sub-breakdown (movie CSV load, solve dispatch/wait,
-    artifact-fetch starts, detection) — the recorded fact the bench reports,
-    instead of scraping this module's log lines (ADVICE r3).
+    artifact-fetch starts, detection, solver counters) — the recorded fact
+    the bench reports, instead of scraping this module's log lines.
 
     `movie_data` optionally supplies the trial's potentials movie already
     parsed (an (T, E) array or a concurrent Future of one): run_batch
     prefetches the NEXT trial's CSV while the current trial computes, so
-    steady-state cohort sweeps never pay the ~0.2 s parse on the critical
-    path (measured r4, trial_flow_detail.movie_load).
+    steady-state cohort sweeps never pay the parse on the critical path
+    (trial_flow_detail.movie_load).
 
-    `device_mesh` optionally runs the trial MULTI-CHIP: the solve
+    `device_mesh` optionally runs the trial MULTI-DEVICE: the solve
     (sharded_compute_velocity_fields over ('frames', 'mesh')), detection,
     wave speeds, and the winding profile grid all shard their frame axis
     (parallel.analysis); only the streamline tracer stays single-device
@@ -457,8 +456,8 @@ def run_trial(trial: TrialRef, config, stages: Sequence[str] = DEVICE_STAGES,
     the single-device trial (solver to tolerance; analysis exactly).
 
     `writer` optionally supplies a SWEEP-SHARED io.ArtifactWriter: this
-    trial's artifact serialization (per-frame bz2 pickles are ~1 s of
-    2-worker compression at reference scale) then overlaps the NEXT
+    trial's artifact serialization (per-frame bz2 pickles are the bulk of
+    it) then overlaps the NEXT
     trial's device compute instead of draining before returning — the
     caller owns the drain, and 'done' means the writes are QUEUED, not
     yet on disk, until the caller's writer.wait(). Without it the trial
@@ -536,16 +535,12 @@ def run_trial(trial: TrialRef, config, stages: Sequence[str] = DEVICE_STAGES,
     def get_velocity():
         """v_world for S3-S7 analysis: from this run's flow stage, or
         reloaded (once) from the V_k.csv artifact of a previous (resumed)
-        run. Returned as ONE shared device array in the analysis dtype
-        (f32 on TPU) so the downstream stages neither refetch nor re-upload
-        the movie over the remote link, and none pays the 15-30x f64
-        emulation penalty."""
+        run. Returned as ONE shared device array so the downstream stages
+        neither refetch nor re-upload the movie."""
         nonlocal v_world_cache
         if v_world_cache is not None:
             return v_world_cache
         import jax.numpy as jnp
-
-        from manifold_flow_tpu.utils.precision import analysis_dtype
 
         if vel is not None:
             v = jnp.asarray(vel.v_world)
@@ -559,7 +554,7 @@ def run_trial(trial: TrialRef, config, stages: Sequence[str] = DEVICE_STAGES,
             raise RuntimeError(
                 f"{trial.key}: stage needs velocity fields but 'flow' "
                 "neither ran nor left artifacts; include 'flow' in stages")
-        v_world_cache = v.astype(analysis_dtype(v.dtype))
+        v_world_cache = v
         return v_world_cache
 
     # One background writer per trial: artifact serialization (pandas CSV,
@@ -578,9 +573,9 @@ def run_trial(trial: TrialRef, config, stages: Sequence[str] = DEVICE_STAGES,
                 max_workers=1, thread_name_prefix="artifact-prefetch"))
             phases_future = pool.submit(io.load_indexed_csv,
                                         trial.phases_path)
-        # Two workers: the per-frame streamline pkl.bz2 set alone is ~2.5 s
-        # of (GIL-releasing) compression at reference scale; a second
-        # thread halves the drain tail after the last device stage. A
+        # Two workers: the per-frame streamline pkl.bz2 set is the largest
+        # (GIL-releasing) compression burst; a second thread halves the
+        # drain tail after the last device stage. A
         # sweep-shared writer (run_batch) skips the per-trial drain so the
         # tail rides the next trial's device compute instead.
         if writer is None:
@@ -717,7 +712,7 @@ def run_batch(root, config, stages: Sequence[str] = DEVICE_STAGES,
         # S2 first: produce the interpolated movies the device stages
         # consume, sharded like trials (same round-robin over the sorted
         # task list). One command then flows a cohort from S0 outputs
-        # (evokeds + TSVs) to winding lines (VERDICT r3 #2).
+        # (evokeds + TSVs) to winding lines.
         tasks = discover_interpolation_tasks(root, subjects=subjects)
         report["interpolation"] = {}
         for i, task in enumerate(tasks):
@@ -770,13 +765,12 @@ def run_batch(root, config, stages: Sequence[str] = DEVICE_STAGES,
         return "flow" in stages and (overwrite
                                      or not stage_done(t, "flow", config))
 
-    # One SWEEP-SHARED artifact writer: trial i's serialization (bz2
-    # pickles, CSVs) overlaps trial i+1's device compute instead of
-    # draining at each trial boundary (~0.85 s/trial at reference scale,
-    # measured r4). The writer drains before run_batch returns, so the
-    # report still means every artifact is on disk; a failed write raises
-    # into whichever trial is running when it surfaces (or at the final
-    # drain) — loud, though possibly attributed one trial late.
+    # One SWEEP-SHARED artifact writer: trial i's serialization (bz2 pickles,
+    # CSVs) overlaps trial i+1's device compute instead of draining at each
+    # trial boundary. The writer drains before run_batch returns, so the report
+    # still means every artifact is on disk; a failed write raises into
+    # whichever trial is running when it surfaces (or at the final drain) —
+    # loud, though possibly attributed one trial late.
     with ThreadPoolExecutor(max_workers=1,
                             thread_name_prefix="movie-prefetch") as pool, \
             io.ArtifactWriter(workers=2) as shared_writer:

@@ -23,7 +23,7 @@ class SolverConfig:
     tol: float = 1e-8
     # Inner f32 PCG tolerance(s) of the refined method: a scalar applies to
     # every outer step; a tuple is a per-outer-step schedule (last entry
-    # repeats). Default = solve.refine.DEFAULT_INNER_TOL, the measured-best
+    # repeats). Default = solve.refine.DEFAULT_INNER_TOL, the
     # tight-first schedule — the first step's inner accuracy sets the
     # delivered error while later corrections shrink ~1e-2/step, so loosening
     # them is free speed (solve/refine.py). YAML expresses a schedule as a
@@ -33,7 +33,7 @@ class SolverConfig:
     inner_tol: "float | tuple" = (1e-3, 1e-2)
     max_iter: int = 2000
     # Frames that fail `tol` at max_iter are re-solved with the refined
-    # (two-float32, direct-solver-accuracy) method before warning; set False
+    # (direct-solver-accuracy) method before warning; set False
     # to only warn. Silent non-convergence would quietly corrupt every
     # downstream artifact (singularities, streamlines, winding lines).
     escalate: bool = True
@@ -111,9 +111,8 @@ class PipelineConfig:
     reference_quirks: bool = False
     # Shape-bucket surfaces (geometry.pad_mesh) in the batch driver so a
     # cohort of subjects with different vertex counts reuses ONE set of
-    # compiled programs (jit keys on array shapes; on a remote compile
-    # service, per-subject recompiles dominate a sweep). Artifacts stay
-    # unpadded.
+    # compiled programs (jit keys on array shapes, so per-subject shapes
+    # would recompile every program per subject). Artifacts stay unpadded.
     pad_meshes: bool = True
     solver: SolverConfig = dataclasses.field(default_factory=SolverConfig)
     preprocess: PreprocessConfig = dataclasses.field(
@@ -157,7 +156,7 @@ class PipelineConfig:
                 setattr(cfg.solver, attr,
                         num(val) if key != "method" else val)
         if "processes_num" in gen:
-            # Reference pool size; informational only on TPU.
+            # Reference pool size; device counts replace it here.
             cfg.solver.n_frame_shards = None
         if "reference_quirks" in gen:
             cfg.reference_quirks = bool(gen["reference_quirks"])

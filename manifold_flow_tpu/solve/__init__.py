@@ -1,16 +1,15 @@
 """Linear solvers for the per-frame FEM systems.
 
 Replaces the reference's `scipy.sparse.linalg.spsolve` under a
-`multiprocessing.Pool` (utils/compute_optical_flow.py:143-194) with two
-TPU-native paths:
+`multiprocessing.Pool` (utils/compute_optical_flow.py:143-194) with batched
+device paths:
 
   * `cg`       — batched matrix-free preconditioned conjugate gradients over
                  all frames simultaneously (block-Jacobi 2x2 preconditioner);
   * `cholesky` — batched dense Cholesky with mixed-precision iterative
                  refinement (small meshes; exact to working precision);
-  * `refined`  — f32 inner PCG + two-float32 compensated residuals
-                 (solve.refine): direct-solver accuracy at f32 speed on
-                 hardware with no float64 units.
+  * `refined`  — f32 inner PCG + native f64 residuals (solve.refine):
+                 direct-solver accuracy from f32 inner iterations.
 
 The iterative paths use a two-level preconditioner by default (solve.coarse):
 block-Jacobi smoothing plus an aggregation coarse-grid correction applied as

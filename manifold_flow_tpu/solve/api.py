@@ -1,6 +1,6 @@
 """High-level velocity-field API.
 
-`compute_velocity_fields` is the TPU equivalent of the reference pipeline
+`compute_velocity_fields` is the batched equivalent of the reference pipeline
 compute_geometrical_quantities -> compute_velocity_field
 (utils/compute_optical_flow.py:27-194): one call solves every frame of a
 potentials movie and returns the velocity DOFs in the reference's layout
@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import jax.numpy as jnp
+import numpy as np
 
 from manifold_flow_tpu.fem import assembly
 from manifold_flow_tpu.fem.operator import (
@@ -25,9 +26,10 @@ from manifold_flow_tpu.solve.cholesky import solve_cholesky
 from manifold_flow_tpu.solve.refine import DEFAULT_INNER_TOL
 
 
-# precond='auto' crossover: measured on TPU v5e (bench problem family), the
-# two-level coarse correction beats plain block-Jacobi once Jacobi iteration
-# counts outgrow the coarse build cost — around a few thousand vertices.
+# precond='auto' crossover: the two-level coarse correction beats plain
+# block-Jacobi once Jacobi iteration counts outgrow the coarse build cost.
+# The value was chosen on an earlier accelerator and awaits re-tuning on
+# the GPU (ROADMAP C7).
 TWO_LEVEL_MIN_VERTICES = 6000
 
 
@@ -37,6 +39,9 @@ class VelocityResult(NamedTuple):
     iterations: jnp.ndarray  # () CG iterations (0 for direct solves)
     residual: jnp.ndarray    # (T-1,) final |f - A x| per frame
     converged: jnp.ndarray   # (T-1,) bool per frame
+    # () outer refinement steps (method='refined'; 0 otherwise). A numpy
+    # default: a device array built at import would initialize the backend.
+    outer_steps: jnp.ndarray = np.int32(0)
 
 
 def _chunked_velocity_fields(mesh: TriMesh, potentials, times,
@@ -47,9 +52,9 @@ def _chunked_velocity_fields(mesh: TriMesh, potentials, times,
     The last window shifts back to end exactly at the movie's end; its
     overlap re-solves a few frames whose duplicates are dropped at
     assembly. Each chunk runs the full solver (its own convergence loop),
-    so per-chunk iteration counts differ — `iterations` reports the max."""
+    so per-chunk iteration counts differ — `iterations` and `outer_steps`
+    report the max."""
     import jax
-    import numpy as np
 
     t_v = potentials.shape[0] - 1
     c = int(chunk)
@@ -61,9 +66,10 @@ def _chunked_velocity_fields(mesh: TriMesh, potentials, times,
         t_c = jax.lax.dynamic_slice_in_dim(times, s, c + 1, 0)
         res = compute_velocity_fields(mesh, p_c, t_c, frame_chunk=None,
                                       **kwargs)
-        return res.v_k, res.iterations, res.residual, res.converged
+        return (res.v_k, res.iterations, res.residual, res.converged,
+                jnp.asarray(res.outer_steps, jnp.int32))
 
-    v, iters, resid, conv = jax.lax.map(body, jnp.asarray(starts))
+    v, iters, resid, conv, outer = jax.lax.map(body, jnp.asarray(starts))
     # Frame k comes from chunk j = min(k // c, n_chunks - 1) at local
     # offset k - starts[j] — static indices, one constant-index gather.
     k = np.arange(t_v)
@@ -71,7 +77,7 @@ def _chunked_velocity_fields(mesh: TriMesh, potentials, times,
     lo = jnp.asarray((k - starts[cj]).astype(np.int32))
     cj = jnp.asarray(cj.astype(np.int32))
     return VelocityResult(v[cj, lo], mesh.basis, jnp.max(iters),
-                          resid[cj, lo], conv[cj, lo])
+                          resid[cj, lo], conv[cj, lo], jnp.max(outer))
 
 
 def build_rhs(mesh: TriMesh, operator: FlowOperator, potentials: jnp.ndarray,
@@ -87,9 +93,9 @@ def build_rhs(mesh: TriMesh, operator: FlowOperator, potentials: jnp.ndarray,
 
 
 # Frame-chunked solving for long movies (see compute_velocity_fields):
-# chunks of ~FRAME_CHUNK_SIZE velocity frames keep XLA's fusion of the
-# (T, 2N) iterate at its measured sweet spot; movies longer than
-# FRAME_CHUNK_AUTO_MIN chunk automatically (frame_chunk='auto').
+# movies longer than FRAME_CHUNK_AUTO_MIN velocity frames solve in chunks of
+# FRAME_CHUNK_SIZE (frame_chunk='auto'). Both values were chosen on an
+# earlier accelerator and await re-tuning on the GPU (ROADMAP C7).
 FRAME_CHUNK_SIZE = 104
 FRAME_CHUNK_AUTO_MIN = 160
 
@@ -122,16 +128,14 @@ def compute_velocity_fields(
       lambda_: regularization weight (config.yaml:3, default 0.01).
       method: 'cg' (batched matrix-free PCG), 'cholesky' (batched dense
         direct solve with iterative refinement), 'refined' (f32 inner PCG +
-        two-float32 residuals; needs float64 inputs), or 'auto' (refined on
-        accelerators with f64 inputs — direct-solver accuracy without native
-        f64 units — else cg).
+        f64 residuals; needs float64 inputs), or 'auto' (refined on
+        accelerators with f64 inputs, else cg).
       precond: 'two_level' (block-Jacobi + aggregation coarse correction,
         solve.coarse), 'jacobi', or 'auto'. 'auto' picks two_level for large
-        meshes and jacobi for small ones: Jacobi-PCG iteration counts grow
-        with mesh refinement (~542 at 12.5k vertices vs ~195 at 3.1k on the
-        bench problem) while the coarse correction keeps them ~flat (~107 at
-        12.5k, 2.1x faster end-to-end); below the crossover the coarse build
-        overhead outweighs the saved iterations. Falls back to jacobi if the
+        meshes and jacobi for small ones (TWO_LEVEL_MIN_VERTICES):
+        Jacobi-PCG iteration counts grow with mesh refinement while the
+        coarse correction keeps them ~flat; below the crossover the coarse
+        build outweighs the saved iterations. Falls back to jacobi if the
         mesh topology is traced (aggregation is a host-side precompute).
       coarse_passes: greedy-aggregation passes for the coarse space (~5-7x
         coarsening per pass); None (default) auto-deepens until the coarse
@@ -145,25 +149,20 @@ def compute_velocity_fields(
         solve; the true per-outer-step reduction floors at ~cond * eps_f32,
         so 1e-3 matches 1e-5's outer-step count with ~45% fewer iterations
         (see solve.refine.solve_refined). A sequence gives per-outer-step
-        tolerances (last entry repeats). Measured on chip (bench scale,
-        tol 1e-6): the FIRST step's inner accuracy dominates the delivered
-        solution error (its low-mode error is invisible to later residual
-        corrections), while later corrections are ~1e-2 smaller each step,
-        so their sloppiness contributes proportionally less. The tight-first
-        default (1e-3, 1e-2) runs 81 inner iterations at RMSE 3.9e-6 vs
-        108 at 3.2e-6 for scalar 1e-3 — +13% end-to-end, same outer count.
+        tolerances (last entry repeats). The FIRST step's inner accuracy
+        dominates the delivered solution error (its low-mode error is
+        invisible to later residual corrections), while later corrections
+        are ~1e-2 smaller each step, so their sloppiness contributes
+        proportionally less — hence the tight-first default (1e-3, 1e-2).
       anchor_stride: (refined method) temporal warm start: solve every
         s-th frame first and start the full solve from the time-interpolated
-        anchors. Measured a net LOSS on single-chip at reference scale
-        (small-batch iterations are overhead-bound, not bandwidth-bound);
-        kept for large-mesh/multi-chip regimes. 1 (default) disables.
+        anchors. 1 (default) disables.
       frame_chunk: 'auto' (default) solves movies longer than
-        FRAME_CHUNK_AUTO_MIN velocity frames in FRAME_CHUNK_SIZE-frame
-        chunks sequenced by one lax.map program (the reference's real
-        trials span up to ~391 frames, where the one-shot batched solve is
-        measurably slower per frame); an int forces that chunk size; None
-        disables. Frames are independent, so results match the unchunked
-        solve to the requested tolerance.
+        FRAME_CHUNK_AUTO_MIN velocity frames in FRAME_CHUNK_SIZE-frame chunks
+        sequenced by one lax.map program (the reference's real trials span up
+        to ~391 frames); a positive int forces that chunk size; None disables.
+        Frames are independent, so results match the unchunked solve to the
+        requested tolerance.
     """
     potentials = jnp.asarray(potentials)
     times = jnp.asarray(times, dtype=potentials.dtype)
@@ -178,20 +177,22 @@ def compute_velocity_fields(
     if potentials.shape[0] < 2:
         raise ValueError("need at least 2 frames to form a velocity field")
 
-    # Long movies solve in frame chunks sequenced by ONE lax.map program:
-    # measured on chip at 3.1k vertices, the per-frame cost of the batched
-    # solve grows superlinearly with the frame axis (0.40 ms/frame at T=97,
-    # 0.60 at 195, 0.78 at 391 — XLA's fusion/tiling of the (T, 2N) iterate
-    # degrades at large T), so a T=391 movie runs ~35% faster as four
-    # ~100-frame chunks inside one dispatch. Frames are independent
+    # Long movies solve in frame chunks sequenced by ONE lax.map program,
+    # which bounds the per-program frame axis. Frames are independent
     # systems; each chunk converges to the same tolerance.
     t_v = potentials.shape[0] - 1
     if frame_chunk == "auto":
         chunk = (FRAME_CHUNK_SIZE
                  if t_v > FRAME_CHUNK_AUTO_MIN and potentials_next is None
                  else None)
+    elif frame_chunk is None:
+        chunk = None
+    elif (isinstance(frame_chunk, (int, np.integer))
+          and not isinstance(frame_chunk, bool) and frame_chunk > 0):
+        chunk = int(frame_chunk)
     else:
-        chunk = frame_chunk
+        raise ValueError(f"frame_chunk must be a positive int, 'auto' or "
+                         f"None; got {frame_chunk!r}")
     if chunk and t_v > chunk and potentials_next is None:
         return _chunked_velocity_fields(
             mesh, potentials, times, int(chunk), dict(
@@ -223,24 +224,19 @@ def compute_velocity_fields(
             tables = None  # traced mesh: aggregation needs concrete topology
 
     if method == "refined":
-        from manifold_flow_tpu.fem.df_operator import mesh_df_tables
         from manifold_flow_tpu.solve.refine import solve_refined
 
         if potentials.dtype != jnp.float64:
             raise ValueError(
                 "method='refined' needs float64 potentials (enable x64 and "
                 f"pass float64 inputs); got {potentials.dtype}")
-        # Built (and cached) OUTSIDE solve_refined's jit so the mesh-only DF
-        # tables don't rebuild on every solve (no-op under tracing).
-        df_tables = mesh_df_tables(mesh)
         res = solve_refined(mesh, potentials, times, lambda_=lambda_,
                             tol=tol, max_iter=max_iter,
                             inner_tol=inner_tol, anchor_stride=anchor_stride,
                             potentials_next=potentials_next,
-                            coarse_tables=tables, coarse_a1=coarse_a1,
-                            df_tables=df_tables)
+                            coarse_tables=tables, coarse_a1=coarse_a1)
         return VelocityResult(res.x, mesh.basis, res.iterations,
-                              res.residual, res.converged)
+                              res.residual, res.converged, res.outer_steps)
 
     op = make_operator(mesh, potentials, lambda_)
     f = build_rhs(mesh, op, potentials, times, potentials_next)

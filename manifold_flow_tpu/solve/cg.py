@@ -1,12 +1,12 @@
 """Batched preconditioned conjugate gradients, matrix-free.
 
 All frames solve simultaneously: the iterate is (T, 2N) and every CG
-primitive (matvec, axpy, dot) is batched over the frame axis, so the TPU sees
-a handful of large fused kernels per iteration instead of the reference's
+primitive (matvec, axpy, dot) is batched over the frame axis, so the device
+sees a handful of large fused kernels per iteration instead of the reference's
 one-process-per-frame SuperLU factorizations
 (utils/compute_optical_flow.py:152-194). Iteration stops when every frame's
 preconditioned residual passes the tolerance (converged frames keep iterating
-harmlessly — uniform control flow is cheaper than masking on TPU).
+harmlessly — uniform control flow is cheaper than masking).
 """
 
 from __future__ import annotations
@@ -31,9 +31,9 @@ def _dot(a: jnp.ndarray, b: jnp.ndarray, precise: bool,
          psum_axis: str | None = None) -> jnp.ndarray:
     """Per-frame dot products (T,), optionally accumulated in float64.
 
-    `precise=True` upcasts the reduction to float64 (requires x64 mode; on
-    TPU float64 is software-emulated but this is a tiny fraction of the
-    iteration cost) and casts back to the compute dtype. With `psum_axis`
+    `precise=True` upcasts the reduction to float64 (requires x64 mode; a
+    tiny fraction of the iteration cost) and casts back to the compute
+    dtype. With `psum_axis`
     (mesh-partitioned DOF vectors, parallel.halo) the local partial sums
     combine over the named axis.
     """

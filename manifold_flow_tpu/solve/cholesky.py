@@ -1,8 +1,8 @@
 """Batched dense Cholesky with mixed-precision iterative refinement.
 
 The exact-solve path for small meshes (the reference's ~3.1k-vertex cortical
-patches give 2N ~= 6.2k DOFs; a dense (2N)^2 matrix is ~150 MB in f32 — cheap
-for HBM, and Cholesky factorization maps straight onto the MXU). Frames are
+patches give 2N ~= 6.2k DOFs; a dense (2N)^2 matrix is ~150 MB in f32, and
+Cholesky factorization is dense matrix work). Frames are
 processed in chunks via `lax.map` to bound peak memory; optional iterative
 refinement recovers near-f64 forward error using the matrix-free operator for
 high-precision residuals.
@@ -36,7 +36,7 @@ def solve_cholesky(mesh: TriMesh, operator: FlowOperator, f: jnp.ndarray,
                    factor_dtype=jnp.float32) -> jnp.ndarray:
     """Solve all frames by dense Cholesky (+ refinement). Returns (T, 2N).
 
-    The factorization runs in `factor_dtype` (f32 rides the MXU); residuals
+    The factorization runs in `factor_dtype` (f32 by default); residuals
     for refinement are computed matrix-free in the operator's dtype (f64 when
     x64 is enabled), the classic mixed-precision refinement scheme.
     """

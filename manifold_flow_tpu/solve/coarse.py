@@ -1,7 +1,7 @@
 """Two-level preconditioner: block-Jacobi smoother + coarse-grid correction.
 
 The reference factors each (a1_k + lambda a2) system exactly with SuperLU
-(utils/compute_optical_flow.py:143-147). The TPU path is iterative (solve.cg)
+(utils/compute_optical_flow.py:143-147). This path is iterative (solve.cg)
 and the systems are ill-conditioned (cond ~ 1e5 at lambda = 0.01), so plain
 block-Jacobi PCG needs hundreds of iterations. This module adds the standard
 cure — a two-level additive preconditioner
@@ -15,12 +15,12 @@ projections e_v^a . ebar_s^b. Smooth tangent fields (the near-kernel of the
 a2 stiffness term that CG resolves slowest) are exactly representable on the
 coarse space, which is what collapses the iteration count.
 
-TPU mapping: the coarse matrices A_c = P^T A P are small (2Nc ~ a few
+Device mapping: the coarse matrices A_c = P^T A P are small (2Nc ~ a few
 hundred) dense batched-over-frames arrays; they are assembled once per solve
-by a triangle-local transform + scatter-add and *explicitly inverted* with a
-batched dense factorization, so the per-iteration coarse correction is one
-batched (T, 2Nc, 2Nc) @ (T, 2Nc) matmul — pure MXU work, no triangular
-solves in the iteration loop.
+by a triangle-local transform + segment reduction and *explicitly inverted*
+with a batched dense factorization, so the per-iteration coarse correction
+is one batched (T, 2Nc, 2Nc) @ (T, 2Nc) matmul — no triangular solves in the
+iteration loop.
 
 Only the aggregate assignment is host-side (greedy graph aggregation on the
 1-ring adjacency, numpy, cached per mesh); everything numeric is traced.
@@ -38,6 +38,9 @@ from manifold_flow_tpu.fem import assembly
 from manifold_flow_tpu.fem.operator import apply_block_diag
 from manifold_flow_tpu.geometry.mesh import TriMesh
 from manifold_flow_tpu.kernels import reduce as kreduce
+
+# f32 contractions run at full f32 precision (no TF32 on GPUs).
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def aggregate_vertices(neighbors: np.ndarray, degrees: np.ndarray,
@@ -110,8 +113,7 @@ class CoarseTables:
     seeds   (Nc,)    seed vertex per aggregate (reference tangent basis)
     members (Nc, K)  member vertices per aggregate, padded with N — turns the
                      restriction P^T (a per-vertex scatter-add over
-                     aggregates) into a fixed-width gather + sum, which is
-                     the fast formulation on TPU (scatter serializes)
+                     aggregates) into a fixed-width gather + sum
     asm_plan         kernels.reduce.ReducePlan assembling the (M, 3, 2, 3, 2)
                      triangle-local coarse contributions into the dense
                      (2Nc)^2 matrix without any scatter
@@ -265,10 +267,11 @@ class TwoLevelPrecond:
         rc2 = jnp.take(q2p, self.members, axis=1).sum(axis=2)  # (T, Nc)
         rc_flat = jnp.stack([rc1, rc2], axis=-1).reshape(t, -1)  # (T, 2Nc)
         if self.ac_inv.shape[0] == 1:   # shared coarse matrix: one matmul
-            yc = rc_flat @ self.ac_inv[0]
+            yc = jnp.matmul(rc_flat, self.ac_inv[0], precision=_HIGHEST)
         else:
             yc = jnp.einsum("tij,tj->ti", self.ac_inv, rc_flat,
-                            preferred_element_type=rc_flat.dtype)  # (T, 2Nc)
+                            preferred_element_type=rc_flat.dtype,
+          precision=_HIGHEST)  # (T, 2Nc)
         ycr = yc.reshape(t, self.n_coarse, 2)
         ya = jnp.take(ycr[:, :, 0], self.agg, axis=1)          # (T, N)
         yb = jnp.take(ycr[:, :, 1], self.agg, axis=1)          # (T, N)
@@ -284,7 +287,7 @@ def coarse_matrices(mesh: TriMesh, g: jnp.ndarray, lambda_,
 
     Triangle-local: transform each 6x6 local block by the corner R blocks and
     assemble into the dense coarse matrix with the scatter-free two-stage
-    reduction (tables.asm_plan — TPU scatter would serialize). The a2 part is
+    reduction (tables.asm_plan, kernels/reduce.py). The a2 part is
     frame-independent and assembled once; the a1 part is the rank-structured
     outer product of the coarse-projected factors Rg (fem.assembly docstring,
     reference compute_a1 utils/compute_optical_flow.py:273-285).
@@ -293,13 +296,14 @@ def coarse_matrices(mesh: TriMesh, g: jnp.ndarray, lambda_,
     nc2 = 2 * tables.n_coarse
     ebar = mesh.basis[tables.seeds].astype(dtype)              # (Nc, 2, 3)
     r_blk = jnp.einsum("nad,nbd->nab", mesh.basis.astype(dtype),
-                       ebar[tables.agg])                       # (N, 2, 2)
+                       ebar[tables.agg],
+          precision=_HIGHEST)  # (N, 2, 2)
     rc = r_blk[mesh.triangles]                                 # (M, 3, 2, 2)
 
     # a2: B2c[m, c, x, c', y] = sum_{a,b} R_c[a,x] B2[c,a,c',b] R_c'[b,y]
     m = mesh.triangles.shape[0]
     b2 = assembly.a2_blocks(mesh).astype(dtype).reshape(m, 3, 2, 3, 2)
-    b2c = jnp.einsum("mcax,mcadb,mdby->mcxdy", rc, b2, rc)
+    b2c = jnp.einsum("mcax,mcadb,mdby->mcxdy", rc, b2, rc, precision=_HIGHEST)
     a2c = kreduce.apply_reduce(
         tables.asm_plan, b2c.reshape(1, -1))[0].reshape(nc2, nc2)
 
@@ -315,16 +319,19 @@ def coarse_matrices(mesh: TriMesh, g: jnp.ndarray, lambda_,
     #            near-kernel;
     #   'none' — lambda*a2 only (frame-independent regularization term).
     t = g.shape[0]
-    rg = jnp.einsum("tmca,mcab->tmcb", g, rc)                  # (T, M, 3, 2)
+    rg = jnp.einsum("tmca,mcab->tmcb", g, rc,
+                    precision=_HIGHEST)  # (T, M, 3, 2)
     w = (jnp.ones((3, 3), dtype) + jnp.eye(3, dtype=dtype)) \
         * (mesh.areas.astype(dtype)[:, None, None] / 12.0)     # (M, 3, 3)
     if a1_mode == "full":
-        b1c = jnp.einsum("tmxy,tmuv,mxu->tmxyuv", rg, rg, w)   # (T,M,3,2,3,2)
+        b1c = jnp.einsum("tmxy,tmuv,mxu->tmxyuv", rg, rg, w,
+                         precision=_HIGHEST)  # (T,M,3,2,3,2)
         a1c = kreduce.apply_reduce(
             tables.asm_plan, b1c.reshape(t, -1)).reshape(t, nc2, nc2)
         ac = a1c + lambda_ * a2c[None]
     elif a1_mode == "mean":
-        b1c = jnp.einsum("tmxy,tmuv,mxu->mxyuv", rg, rg, w) / t
+        b1c = jnp.einsum("tmxy,tmuv,mxu->mxyuv", rg, rg, w,
+                         precision=_HIGHEST) / t
         a1c = kreduce.apply_reduce(
             tables.asm_plan, b1c.reshape(1, -1)).reshape(nc2, nc2)
         ac = (a1c + lambda_ * a2c)[None]
@@ -355,7 +362,7 @@ def make_two_level(mesh: TriMesh, g: jnp.ndarray, lambda_,
     linv = jax.lax.linalg.triangular_solve(
         chol, eye, left_side=True, lower=True)
     ac_inv = jnp.einsum("tki,tkj->tij", linv, linv,
-                        preferred_element_type=ac.dtype)
+                        preferred_element_type=ac.dtype, precision=_HIGHEST)
     # Fall back to plain Jacobi (identity coarse term of size 0 is awkward in
     # fixed shapes, so instead zero the correction) if the factorization
     # failed: NaNs in chol -> zero ac_inv.

@@ -1,21 +1,20 @@
 """Mixed-precision iterative refinement for the batched velocity solve.
 
 The reference solves each frame exactly with SuperLU in float64
-(utils/compute_optical_flow.py:143-147). On TPU the fast path is float32
-(MXU/VPU native); plain f32 PCG stalls at a normalized error around
+(utils/compute_optical_flow.py:143-147). The fast path here is float32;
+plain f32 PCG stalls at a normalized error around
 cond(A) * eps_f32 ~ 1e-3 on the ill-conditioned a1 + lambda a2 systems.
 Classic fix: iterate
 
-    r = f - A x          (high precision)
+    r = f - A x          (float64, fem.operator)
     d = PCG_f32(A, r)    (float32 — hundreds of matvecs at full speed)
-    x = x + d            (high-precision accumulate)
+    x = x + d            (float64 accumulate)
 
 which converges to direct-solver accuracy as long as cond(A) << 1/eps_f32.
-
-The high-precision pieces use compensated two-float32 arithmetic
-(fem.df_operator / kernels.df32) — native-f32 VPU kernels, ~2^-48 effective
-precision — instead of XLA's ~20x-slower float64 emulation; only the initial
-input splits touch f64. Requires x64 mode for the f64 inputs/outputs.
+The residual is one native-f64 matvec per outer step. (A two-float32
+emulation of it, written for an accelerator without f64 units, did not
+survive XLA's GPU compiler — it lost ~6 digits — and was removed.)
+Requires x64 mode for the f64 inputs/outputs.
 """
 
 from __future__ import annotations
@@ -28,15 +27,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from manifold_flow_tpu.fem.df_operator import make_df_operator
-from manifold_flow_tpu.fem.operator import FlowOperator, block_jacobi_inverse
-from manifold_flow_tpu.kernels import df32
+from manifold_flow_tpu.fem.operator import (
+    FlowOperator,
+    block_jacobi_inverse,
+    make_operator,
+)
 from manifold_flow_tpu.solve.cg import solve_cg
 
 
-# Measured-best inner tolerance schedule (bench scale, tol 1e-6, on chip):
-# tight-first (1e-3, 1e-2) runs 81 inner iterations at RMSE 3.9e-6 vs 108 at
-# 3.2e-6 for scalar 1e-3 — +13% end-to-end at the same outer-step count. The
+# Tight-first inner tolerance schedule (see solve_refined). Chosen on an
+# earlier accelerator and awaiting re-tuning on the GPU (ROADMAP C7). The
 # single source of truth for every API layer (solve.api, parallel.*,
 # pipeline.config) so production runs what the bench measures.
 DEFAULT_INNER_TOL = (1e-3, 1e-2)
@@ -87,7 +87,7 @@ def solve_refined(mesh, potentials: jnp.ndarray, times: jnp.ndarray,
                   refine_steps: int = 8,
                   potentials_next: jnp.ndarray | None = None,
                   coarse_tables=None, coarse_a1: str = "full",
-                  anchor_stride: int = 1, df_tables=None) -> RefineResult:
+                  anchor_stride: int = 1) -> RefineResult:
     """Solve (a1_k + lambda a2) x_k = f_k for all frames to f64-grade accuracy.
 
     Args:
@@ -99,19 +99,17 @@ def solve_refined(mesh, potentials: jnp.ndarray, times: jnp.ndarray,
         The f32 recurrence residual drifts from the true residual at the
         ~cond(A) * eps_f32 ~ 1e-2 level, so the TRUE per-outer-step reduction
         saturates near that floor no matter how tightly the inner solve
-        converges; 1e-3 reaches the same outer-step count as 1e-5 with ~45%
-        fewer inner iterations (measured on chip at reference scale:
-        195 -> 108 iterations, ~1.4x end-to-end, identical outer steps).
+        converges, so a loose inner tolerance reaches the same outer-step
+        count with fewer inner iterations.
         May also be a sequence: per-outer-step tolerances (the last entry
-        repeats for any further steps). Measured on chip: the FIRST step's
-        inner accuracy dominates the delivered solution error — the loosely
+        repeats for any further steps). The FIRST step's inner accuracy
+        dominates the delivered solution error — the loosely
         solved low-mode error it leaves is nearly invisible to the residual,
         so later corrections never target it — while each later correction
         is ~1e-2 smaller than the one before, so ITS inner sloppiness
-        contributes proportionally less error. Hence tight-first schedules:
-        (1e-3, 1e-2) gives 81 iterations / RMSE 3.9e-6 vs 108 / 3.2e-6 for
-        scalar 1e-3 and 92 / 7.3e-6 for scalar 3e-3 (bench scale, tol 1e-6;
-        loose-early schedules reproduce the loose-everywhere RMSE).
+        contributes proportionally less error. Hence tight-first schedules
+        such as the default (1e-3, 1e-2); loose-early schedules reproduce
+        the loose-everywhere error.
       max_iter: per-inner-solve iteration cap (static).
       refine_steps: outer iteration cap (static); the loop exits as soon as
         every frame passes `tol`.
@@ -128,15 +126,16 @@ def solve_refined(mesh, potentials: jnp.ndarray, times: jnp.ndarray,
         raise ValueError(
             f"solve_refined needs float64 inputs (enable x64); got "
             f"{potentials.dtype}")
-    op_df, f_df = make_df_operator(mesh, potentials, times, lambda_,
-                                   potentials_next=potentials_next,
-                                   tables=df_tables)
+    from manifold_flow_tpu.solve.api import build_rhs
+
+    op = make_operator(mesh, potentials, lambda_)
+    f = build_rhs(mesh, op, potentials, times, potentials_next)
     x0 = None
     anchor_iters = jnp.int32(0)
     n_sys = potentials.shape[0] - 1
     if anchor_stride > 1 and n_sys > anchor_stride:
         x0, anchor_iters = _anchor_warm_start(
-            mesh, op_df, f_df, n_sys, anchor_stride,
+            mesh, op, f, n_sys, anchor_stride,
             # Anchors only need to be as accurate as the temporal
             # interpolation error they seed; tol beyond that is wasted.
             # (jnp.maximum: tol may be a traced value under jit.)
@@ -144,24 +143,22 @@ def solve_refined(mesh, potentials: jnp.ndarray, times: jnp.ndarray,
             max_iter=max_iter,
             refine_steps=refine_steps, coarse_tables=coarse_tables,
             coarse_a1=coarse_a1)
-    res = refine_loop(mesh, op_df, f_df, tol=tol, inner_tol=inner_tol,
+    res = refine_loop(mesh, op, f, tol=tol, inner_tol=inner_tol,
                       max_iter=max_iter, refine_steps=refine_steps,
                       coarse_tables=coarse_tables, coarse_a1=coarse_a1,
                       x0=x0)
     return res._replace(iterations=res.iterations + anchor_iters)
 
 
-def _anchor_warm_start(mesh, op_df, f_df, n_sys: int, stride: int,
+def _anchor_warm_start(mesh, op, f, n_sys: int, stride: int,
                        **refine_kwargs):
     """Solve anchor frames [0, s, 2s, ..., last], then linearly interpolate
     their solutions over the frame index into a (T, 2N) starting iterate.
-    Returns (x0 DF, anchor inner-iteration count)."""
+    Returns (x0 f64, anchor inner-iteration count)."""
     anchors = jnp.minimum(jnp.arange(0, n_sys + stride - 1, stride),
                           n_sys - 1)                       # includes last
-    op_a = dataclasses.replace(
-        op_df, g=df32.DF(op_df.g.hi[anchors], op_df.g.lo[anchors]))
-    f_a = df32.DF(f_df.hi[anchors], f_df.lo[anchors])
-    res_a = refine_loop(mesh, op_a, f_a, **refine_kwargs)
+    op_a = dataclasses.replace(op, g=op.g[anchors])
+    res_a = refine_loop(mesh, op_a, f[anchors], **refine_kwargs)
     xa = res_a.x                                           # (A, 2N) f64
     # Piecewise-linear in the frame index (frames are uniformly sampled;
     # index interpolation == time interpolation).
@@ -177,26 +174,25 @@ def _anchor_warm_start(mesh, op_df, f_df, n_sys: int, stride: int,
     w = jnp.where((i1 * stride > n_sys - 1)[:, None],
                   ((k - i0 * stride) / seg_len).astype(xa.dtype)[:, None], w)
     x0 = (1.0 - w) * xa[i0] + w * xa[i1]
-    return df32.from_f64(x0), res_a.iterations
+    return x0, res_a.iterations
 
 
-def refine_loop(mesh, op_df, f_df, tol: float = 1e-8,
+def refine_loop(mesh, op: FlowOperator, f, tol: float = 1e-8,
                 inner_tol=DEFAULT_INNER_TOL, max_iter: int = 2000,
                 refine_steps: int = 8, coarse_tables=None,
-                coarse_a1: str = "full",
-                x0: df32.DF | None = None) -> RefineResult:
-    """The refinement iteration given a prebuilt DF operator + RHS.
+                coarse_a1: str = "full", x0=None) -> RefineResult:
+    """The refinement iteration given a prebuilt f64 operator + RHS.
 
     Factored out so parallel.partition can run it inside a shard_map with
     the frame axis sharded (frames are independent systems — each shard
-    iterates until its own frames converge). `x0` (a DF iterate, e.g. the
-    temporal warm start of solve_refined) replaces the zero start."""
-    # Float32 operator + block-Jacobi preconditioner for the inner solves:
-    # the hi components ARE the rounded-to-f32 operator.
-    op32 = FlowOperator(
-        dof=op_df.dof, blocks2=op_df.blocks2.hi, g=op_df.g.hi,
-        w_scale=op_df.w_scale.hi, lambda_=op_df.lambda_.hi,
-        gather_base=op_df.gather_base, n_dof=op_df.n_dof)
+    iterates until its own frames converge). `x0` (an f64 iterate, e.g.
+    the temporal warm start of solve_refined) replaces the zero start."""
+    # Float32 operator + preconditioner for the inner solves: the f64
+    # operator rounded to f32.
+    f32 = jnp.float32
+    op32 = dataclasses.replace(
+        op, blocks2=op.blocks2.astype(f32), g=op.g.astype(f32),
+        w_scale=op.w_scale.astype(f32), lambda_=op.lambda_.astype(f32))
     if coarse_tables is not None:
         from manifold_flow_tpu.solve.coarse import make_two_level
 
@@ -205,39 +201,35 @@ def refine_loop(mesh, op_df, f_df, tol: float = 1e-8,
     else:
         pre32 = block_jacobi_inverse(mesh, op32.g, op32.lambda_)
 
-    fnorm = jnp.linalg.norm(f_df.hi, axis=-1)
-    target = (tol * jnp.maximum(fnorm, jnp.finfo(jnp.float32).tiny)
-              ).astype(jnp.float32)
+    fnorm = jnp.linalg.norm(f, axis=-1)
+    target = tol * jnp.maximum(fnorm, jnp.finfo(f32).tiny)
 
     # Per-outer-step inner tolerances (scalar = same every step; the last
     # entry repeats past the end of a schedule).
-    sched = jnp.stack([jnp.asarray(t, jnp.float32)
+    sched = jnp.stack([jnp.asarray(t, f32)
                        for t in as_inner_schedule(inner_tol)])
 
     def cond(state):
         _, r, _, step = state
-        rn = jnp.linalg.norm(r.hi, axis=-1)
+        rn = jnp.linalg.norm(r, axis=-1)
         return (step < refine_steps) & jnp.any(rn > target)
 
     def body(state):
         x, r, total_iters, step = state
         step_tol = sched[jnp.minimum(step, sched.shape[0] - 1)]
-        inner = solve_cg(op32, r.hi, precond=pre32, tol=step_tol,
+        inner = solve_cg(op32, r.astype(f32), precond=pre32, tol=step_tol,
                          max_iter=max_iter)
-        x = df32.add(x, df32.from_f32(inner.x))
-        r = op_df.residual(f_df, x)
+        x = x + inner.x.astype(x.dtype)
+        r = f - op.matvec(x)
         return x, r, total_iters + inner.iterations, step + 1
 
     if x0 is None:
-        start = df32.DF(jnp.zeros_like(f_df.hi), jnp.zeros_like(f_df.hi))
-        r_start = f_df
+        start, r_start = jnp.zeros_like(f), f
     else:
-        start = x0
-        r_start = op_df.residual(f_df, x0)
+        start, r_start = x0, f - op.matvec(x0)
     x, r, total_iters, steps = jax.lax.while_loop(
         cond, body, (start, r_start, jnp.int32(0), jnp.int32(0)))
 
-    rn = jnp.linalg.norm(df32.to_f64(r), axis=-1)
-    return RefineResult(x=df32.to_f64(x), iterations=total_iters, residual=rn,
-                        converged=rn <= target.astype(jnp.float64),
-                        outer_steps=steps)
+    rn = jnp.linalg.norm(r, axis=-1)
+    return RefineResult(x=x, iterations=total_iters, residual=rn,
+                        converged=rn <= target, outer_steps=steps)

@@ -138,10 +138,9 @@ def save_indexed_csv(path, data):
     reshape_and_save_data, utils/compute_optical_flow.py:314-320).
 
     np.savetxt over pandas to_csv deliberately: with an explicit
-    float_format pandas falls off its fast path and runs ~4x slower than
-    numpy's writer at movie scale (measured r4: 0.18 s vs 0.81 s).
-    Atomic (temp + rename) — sweep-shared writers may submit the same
-    subject-level artifact (e.csv) from several trials."""
+    float_format pandas falls off its fast path (and numpy is the only
+    dependency). Atomic (temp + rename) — sweep-shared writers may submit
+    the same subject-level artifact (e.csv) from several trials."""
     data = np.asarray(data)
     data = data.reshape(data.shape[0], -1)
     header = "," + ",".join(str(i) for i in range(data.shape[1]))
@@ -155,10 +154,9 @@ def save_indexed_csv(path, data):
 def load_indexed_csv(path):
     """Load a reference-format CSV (header row + index column) -> (T, D).
 
-    np.loadtxt deliberately: its C tokenizer reads a reference-scale movie
-    in ~0.10 s where pandas with the exact-roundtrip float parser
-    (float_precision='round_trip', required so %.18g artifacts re-load
-    bit-identically on resume) takes ~0.31 s (measured r4)."""
+    np.loadtxt deliberately: its C tokenizer round-trips the %.18g
+    artifacts bit-identically on resume without pandas' slower exact
+    parser."""
     data = np.loadtxt(path, delimiter=",", skiprows=1)
     if data.ndim == 1:
         data = data[None]
@@ -207,6 +205,24 @@ def load_e_csv(path):
     return load_indexed_csv(path).reshape(-1, 2, 3)
 
 
+# Missing-value markers in BIDS TSV sidecars: 'n/a' is the BIDS spelling;
+# an empty cell is treated the same way.
+_TSV_MISSING = ("n/a", "")
+
+
+def read_tsv(path) -> list[dict]:
+    """Rows of a BIDS TSV sidecar as {column: str | None} dicts (header row
+    first; 'n/a' and empty cells become None)."""
+    import csv
+
+    with open(path, newline="", encoding="utf-8") as f:
+        rows = list(csv.DictReader(f, delimiter="\t"))
+    return [{k.strip(): (None if v is None or v.strip() in _TSV_MISSING
+                         else v.strip())
+             for k, v in row.items() if k is not None}
+            for row in rows]
+
+
 def load_grid_electrodes(path, group: str = "grid", names=None,
                          exclude=None, with_names: bool = False):
     """Electrode coordinates (E, 3) from a BIDS electrodes.tsv.
@@ -216,25 +232,23 @@ def load_grid_electrodes(path, group: str = "grid", names=None,
     channel list; `exclude` drops channels (the stimulated pair is removed
     before interpolation, S2_interpolate.py:125-135).
     """
-    import pandas as pd
-
-    table = pd.read_csv(path, sep="\t")
-    if group is not None and "group" in table:
-        table = table[table["group"] == group]
+    rows = read_tsv(path)
+    if group is not None and rows and "group" in rows[0]:
+        rows = [r for r in rows if r["group"] == group]
     if names is not None:
-        table = table[table["name"].isin(set(map(str, names)))]
+        want = set(map(str, names))
+        rows = [r for r in rows if r.get("name") in want]
     if exclude is not None:
-        table = table[~table["name"].isin(set(map(str, exclude)))]
+        drop = set(map(str, exclude))
+        rows = [r for r in rows if r.get("name") not in drop]
     coords, kept = [], []
-    for _, row in table.iterrows():
-        vals = [row["x"], row["y"], row["z"]]
-        # BIDS marks missing coordinates 'n/a'; pandas may parse that as NaN.
-        if any(str(v) == "n/a" or (isinstance(v, float) and np.isnan(v))
-               for v in vals):
+    for row in rows:
+        vals = [row.get("x"), row.get("y"), row.get("z")]
+        if any(v is None for v in vals):
             continue
         coords.append([float(v) for v in vals])
         kept.append(str(row["name"]))
-    coords = np.asarray(coords, dtype=np.float64)
+    coords = np.asarray(coords, dtype=np.float64).reshape(-1, 3)
     return (coords, kept) if with_names else coords
 
 
@@ -335,8 +349,8 @@ def ensure_dir(path):
 def start_host_copy(*arrays):
     """Begin async device->host copies for any device arrays among
     `arrays` (no-op for numpy). Starting every copy before the first
-    blocking np.asarray lets the transfers pipeline over a remote
-    accelerator link instead of paying one round trip per array; callers
+    blocking np.asarray lets the transfers pipeline instead of paying one
+    round trip per array; callers
     then materialize with np.asarray in any order."""
     for a in arrays:
         start = getattr(a, "copy_to_host_async", None)
@@ -357,13 +371,12 @@ class ArtifactWriter:
     device compute.
 
     A trial's stages run device programs back-to-back, but each stage
-    first blocks on its artifact writes — pandas CSV formatting and bz2
+    first blocks on its artifact writes — CSV formatting and bz2
     compression (the reference's `pkl.bz2` formats) cost hundreds of ms
-    apiece on this 2-core host. Submitting the writes to one worker
-    thread lets the next stage's device program start immediately: the
-    worker spends its time in GIL-releasing C code (bz2, pandas/numpy)
-    while the main thread blocks on the accelerator, so the overlap is
-    real even with two cores.
+    apiece. Submitting the writes to a worker thread lets the next stage's
+    device program start immediately: the worker spends its time in
+    GIL-releasing C code (bz2, numpy) while the main thread blocks on the
+    accelerator.
 
     Jobs are dispatched FIFO; with `workers > 1` they complete in any
     order, so submitters must target distinct paths (stage artifacts do).
@@ -373,7 +386,7 @@ class ArtifactWriter:
     whose device->host copy has already been STARTED
     (`copy_to_host_async`, see pipeline.stages._start_host_copy) — a cold
     device array would make the worker issue a fetch that serializes
-    against the main thread's dispatches on a remote backend.
+    against the main thread's dispatches.
     """
 
     def __init__(self, workers: int = 1):

@@ -7,7 +7,7 @@ geometry precompute and the frame pool (utils/compute_optical_flow.py:44,
   * `span(name)` / `Timer` — structured wall-clock spans with a process-wide
     registry; `report()` returns {name: {count, total_s, mean_s}}.
   * `trace(log_dir)` — context manager around `jax.profiler` device traces
-    (view in TensorBoard / XProf) for kernel-level TPU profiling.
+    (view in TensorBoard / XProf) for kernel-level device profiling.
   * `frames_per_second(n_frames, fn, *args)` — the framework's first-class
     throughput metric: compile-excluded best-of-k timing of a jitted callable
     with `block_until_ready`.

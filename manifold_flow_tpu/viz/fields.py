@@ -164,9 +164,7 @@ def plot_spatial_modes(mesh, modes, n_modes: int = 4, scaling: str = "scaled",
     context plot. Returns the list of figures; `save_path_fmt` (with a
     `{mode}` field) also writes one PNG per mode.
     """
-    from manifold_flow_tpu.utils.precision import complex_to_numpy
-
-    vt = complex_to_numpy(modes.vt)
+    vt = np.asarray(modes.vt)
     sigma = np.asarray(modes.sigma)
     if not np.iscomplexobj(vt):
         # Concat form (K, 2N) -> complex (K, N) (ConcatMatrices :194-197).
@@ -177,8 +175,7 @@ def plot_spatial_modes(mesh, modes, n_modes: int = 4, scaling: str = "scaled",
     figs = []
     k = min(n_modes, vt.shape[0])
     for i in range(k):
-        # calculate_V_k_from_complex (ComplexMatrices:49-69) in host numpy:
-        # a complex device tensor cannot cross the TPU transfer boundary.
+        # calculate_V_k_from_complex (ComplexMatrices:49-69) in host numpy.
         svt = sigma[i] * vt[i]
         world = (np.real(svt)[:, None] * basis[:, 0]
                  + np.imag(svt)[:, None] * basis[:, 1])

@@ -4,7 +4,7 @@ This image can never run PyVista/MNE, so reference-produced artifacts cannot
 be regenerated here. Instead a tiny synthetic trial's FULL artifact tree —
 both quirk modes — is checked in under tests/fixtures/golden/, and
 tests/test_golden.py asserts that today's pipeline reproduces every file
-through the same loaders a reference consumer would use (VERDICT r2 #6).
+through the same loaders a reference consumer would use.
 
 Regenerate (only when an intentional numerics/format change lands) with:
 

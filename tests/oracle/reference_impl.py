@@ -5,7 +5,7 @@ vectorized numpy (the reference uses per-element Python loops over scipy LIL
 matrices — same math, different construction).
 
 The reference has no test suite (SURVEY.md §4); this oracle substitutes for
-it: the TPU framework must reproduce these outputs within tight tolerances.
+it: the framework must reproduce these outputs within tight tolerances.
 """
 
 from __future__ import annotations

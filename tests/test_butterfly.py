@@ -8,7 +8,7 @@ implements): exact stencil weights for the regular interior rule
 (1/2, 1/8, -1/16), the boundary 4-point rule (9/16, -1/16), the
 valence-k extraordinary-vertex rule (3/4 center + s_j ring), interpolation
 (old vertices never move), affine invariance (every stencil sums to 1), and
-the scheme's high-order convergence on a sphere (VERDICT r4 #7).
+the scheme's high-order convergence on a sphere.
 
 Weight extraction trick: butterfly_subdivide is linear in the coordinate
 array and indifferent to its width, so running it on the identity matrix

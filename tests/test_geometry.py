@@ -182,9 +182,9 @@ def test_pad_mesh_already_aligned_is_noop():
 
 
 def test_pad_mesh_parity_across_ops():
-    """pad_mesh (TPU tiling / fixed-shape program reuse): FEM solve,
+    """pad_mesh (fixed-shape program reuse): FEM solve,
     detection, streamlines, and winding give identical results on the padded
-    mesh, with padding masked out (VERDICT r1 #8)."""
+    mesh, with padding masked out."""
     import jax.numpy as jnp
     from manifold_flow_tpu.geometry import synthetic
     from manifold_flow_tpu.geometry.mesh import pad_mesh

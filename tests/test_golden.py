@@ -1,6 +1,6 @@
 """Golden-artifact regression: today's pipeline must reproduce the checked-in
 artifact tree of a tiny synthetic trial, in both quirk modes, through the
-same loaders a reference consumer uses (VERDICT r2 #6). This pins the interop
+same loaders a reference consumer uses. This pins the interop
 surface — file set, formats, and numerics — permanently, in an image that can
 never run the reference's PyVista/MNE stack to cross-check."""
 

@@ -163,10 +163,10 @@ def test_winding_movie_chunked_grid_matches(source_setup, monkeypatch):
 
 
 def test_winding_chunk_math_at_long_trial_scale():
-    """Pin the grid-chunk arithmetic at the reference's upper frame count
-    (VERDICT r4 #3): T=391 frames at the 12.5k bench mesh leaves the
-    center-axis chunk at EXACTLY 8 — its floor, still >= the minimum bucket
-    so the chunked grid (not the chase-class slots fallback) runs. One more
+    """Pin the grid-chunk arithmetic at the reference's upper frame count:
+    T=391 frames at the 12.5k bench mesh leaves the center-axis chunk at
+    EXACTLY 8 — its floor, still >= the minimum bucket so the chunked grid
+    (not the chase-class slots fallback) runs. One more
     vertex-count doubling drops the chunk below 8 and the dispatcher must
     fall back to slots; the 3.1k/T=391 case chunks at 48."""
     cap = winding._GRID_MAX_ELEMS
@@ -219,7 +219,7 @@ def test_winding_movie_chunk_floor_matches(source_setup, monkeypatch):
 
 def test_winding_movie_precomputed_centers_match(source_setup):
     """Passing precomputed snapped centers (the detection stage's device
-    output, VERDICT r3 #3) yields results identical to the host-snap path."""
+    output) yields results identical to the host-snap path."""
     mesh, _, _, truth, _, v3 = source_setup
     t, s = 3, 4
     rng = np.random.default_rng(5)
@@ -334,47 +334,19 @@ def test_svd_complex_matches_numpy(source_setup):
     assert np.all(np.mean(np.real(np.asarray(modes.u)), axis=0) >= -1e-12)
 
 
-def test_svd_complex_gram_path_matches_exact(source_setup):
-    """The TPU fallback (all-real Gram-embedding eigendecomposition,
-    _svd_complex_parts_gram — the TPU compiler cannot lower complex SVD)
-    must reproduce the exact complex SVD up to per-mode phase: equal
-    singular values and equal rank-k reconstruction."""
-    _, _, _, _, res, _ = source_setup
-    v_k = np.asarray(res.v_k)
-    k = 4
-    ur, ui, s, vr, vi, pct, pct2 = svd._svd_complex_parts_gram(
-        jnp.asarray(v_k), k)
-    n = v_k.shape[1] // 2
-    movie = v_k[:, :n] + 1j * v_k[:, n:]
-    u_ref, s_ref, vt_ref = np.linalg.svd(movie, full_matrices=False)
-    np.testing.assert_allclose(np.asarray(s), s_ref[:k], rtol=1e-6)
-    u = np.asarray(ur) + 1j * np.asarray(ui)
-    vt = np.asarray(vr) + 1j * np.asarray(vi)
-    rec_got = u @ np.diag(np.asarray(s)) @ vt
-    rec_want = u_ref[:, :k] @ np.diag(s_ref[:k]) @ vt_ref[:k]
-    scale = np.abs(rec_want).max()
-    np.testing.assert_allclose(rec_got, rec_want, atol=1e-6 * scale)
-    # Unit temporal modes + the sign convention.
-    np.testing.assert_allclose(np.linalg.norm(u, axis=0), 1.0, rtol=1e-6)
-    assert np.all(np.mean(np.real(u), axis=0) >= -1e-9)
-
-
-def _gram_vs_exact(movie, k):
-    t, n = movie.shape
+def _svd_complex_vs_numpy(movie, k):
     v_k = np.concatenate([movie.real, movie.imag], axis=1)
-    ur, ui, s, vr, vi, _, _ = svd._svd_complex_parts_gram(jnp.asarray(v_k), k)
-    u = np.asarray(ur) + 1j * np.asarray(ui)
-    vt = np.asarray(vr) + 1j * np.asarray(vi)
+    modes = svd.decompose_complex(jnp.asarray(v_k), k)
     u_ref, s_ref, vt_ref = np.linalg.svd(movie, full_matrices=False)
-    return u, np.asarray(s), vt, u_ref, s_ref, vt_ref
+    return (np.asarray(modes.u), np.asarray(modes.sigma), np.asarray(modes.vt),
+            u_ref, s_ref, vt_ref)
 
 
-def test_svd_complex_gram_degenerate_singular_values():
-    """Repeated singular values: eigh returns an arbitrary basis of the
-    doubled eigengroup, where the naive every-other-column selection picked
-    two images of the same complex mode and dropped another. The greedy
-    complex-orthogonalizing selection must keep u orthonormal and the
-    rank-k reconstruction exact."""
+def test_svd_complex_degenerate_singular_values():
+    """Repeated singular values: the kept temporal modes are an arbitrary
+    basis of each degenerate group, so only gauge-free quantities are
+    compared with numpy — singular values, orthonormality and the rank-k
+    reconstruction."""
     rng = np.random.default_rng(7)
     t, n, k = 12, 40, 6
     uq, _ = np.linalg.qr(rng.normal(size=(t, t))
@@ -383,55 +355,51 @@ def test_svd_complex_gram_degenerate_singular_values():
                          + 1j * rng.normal(size=(n, t)))
     sig = np.array([5.0, 3.0, 3.0, 3.0, 2.0, 2.0] + [1.0] * (t - 6))
     movie = (uq * sig) @ vq.conj().T
-    u, s, vt, u_ref, s_ref, vt_ref = _gram_vs_exact(movie, k)
-    np.testing.assert_allclose(s, s_ref[:k], rtol=1e-6)
-    np.testing.assert_allclose(u.conj().T @ u, np.eye(k), atol=1e-6)
+    u, s, vt, u_ref, s_ref, vt_ref = _svd_complex_vs_numpy(movie, k)
+    np.testing.assert_allclose(s, s_ref[:k], rtol=1e-12)
+    np.testing.assert_allclose(u.conj().T @ u, np.eye(k), atol=1e-12)
     rec_got = u @ np.diag(s) @ vt
     rec_want = u_ref[:, :k] @ np.diag(s_ref[:k]) @ vt_ref[:k]
     np.testing.assert_allclose(rec_got, rec_want,
-                               atol=1e-6 * np.abs(rec_want).max())
+                               atol=1e-12 * np.abs(rec_want).max())
+    assert np.all(np.mean(np.real(u), axis=0) >= -1e-12)
 
 
-def test_svd_concat_gram_matches_exact(source_setup):
-    """The TPU concat-SVD fast path (T x T Gram eigendecomposition in f32)
-    must match the exact SVD at f32-level accuracy: equal singular values
-    and equal rank-k reconstruction."""
-    _, _, _, _, res, _ = source_setup
-    v_k = np.asarray(res.v_k)
-    k = 4
-    u, s, vt, pct, pct2 = svd._svd_concat_gram(jnp.asarray(v_k), k)
-    u_ref, s_ref, vt_ref = np.linalg.svd(v_k, full_matrices=False)
-    # Gram squaring in f32 gives ABSOLUTE accuracy ~eps_f32 * sigma_1 on
-    # singular values (small sigmas lose relative digits quadratically) —
-    # exactly right for mode-ENERGY analysis, which is sigma_1-scaled.
-    np.testing.assert_allclose(np.asarray(s), s_ref[:k],
-                               atol=5e-4 * s_ref[0])
-    rec_got = np.asarray(u) @ np.diag(np.asarray(s)) @ np.asarray(vt)
-    rec_want = u_ref[:, :k] @ np.diag(s_ref[:k]) @ vt_ref[:k]
-    scale = np.abs(rec_want).max()
-    np.testing.assert_allclose(rec_got, rec_want, atol=2e-3 * scale)
-    # Sign convention + unit modes.
-    assert np.all(np.mean(np.asarray(u), axis=0) >= -1e-6)
-    np.testing.assert_allclose(np.linalg.norm(np.asarray(u), axis=0), 1.0,
-                               rtol=1e-5)
-
-
-def test_svd_complex_gram_rank_deficient():
-    """Zero singular values must yield ZERO vt rows (not 1/tiny-scaled
-    rounding noise), and k clamps to min(T, N) like the exact SVD."""
+def test_svd_complex_rank_deficient():
+    """A rank-3 movie: all min(T, N) modes come back (n_modes=None), the
+    singular values past the rank are numerically zero, every factor is
+    finite, and the full reconstruction is exact."""
     rng = np.random.default_rng(8)
     t, n, rank = 10, 30, 3
     movie = ((rng.normal(size=(t, rank)) + 1j * rng.normal(size=(t, rank)))
              @ (rng.normal(size=(rank, n)) + 1j * rng.normal(size=(rank, n))))
-    u, s, vt, u_ref, s_ref, _ = _gram_vs_exact(movie, None)
+    u, s, vt, _, s_ref, _ = _svd_complex_vs_numpy(movie, None)
     assert s.shape[0] == min(t, n)
-    np.testing.assert_allclose(s[:rank], s_ref[:rank], rtol=1e-6)
-    # Beyond the rank: tiny sigma, finite (zeroed) vt rows.
-    assert np.all(np.isfinite(vt))
-    tail = np.abs(vt[rank + 1:])
-    assert tail.size == 0 or tail.max() <= 1.0 + 1e-6
-    rec = u @ np.diag(s) @ vt
-    np.testing.assert_allclose(rec, movie, atol=1e-6 * np.abs(movie).max())
+    np.testing.assert_allclose(s[:rank], s_ref[:rank], rtol=1e-12)
+    assert s[rank:].max() <= 1e-12 * s[0]
+    assert np.all(np.isfinite(u)) and np.all(np.isfinite(vt))
+    np.testing.assert_allclose(u @ np.diag(s) @ vt, movie,
+                               atol=1e-12 * np.abs(movie).max())
+
+
+def test_svd_concat_matches_numpy(source_setup):
+    """Concatenated-real SVD against numpy.linalg.svd: equal singular
+    values, equal rank-k reconstruction, unit temporal modes and the
+    non-negative-mean sign convention."""
+    _, _, _, _, res, _ = source_setup
+    v_k = np.asarray(res.v_k)
+    k = 4
+    modes = svd.decompose_concat(jnp.asarray(v_k), k)
+    u, s, vt = (np.asarray(modes.u), np.asarray(modes.sigma),
+                np.asarray(modes.vt))
+    u_ref, s_ref, vt_ref = np.linalg.svd(v_k, full_matrices=False)
+    np.testing.assert_allclose(s, s_ref[:k], rtol=1e-10)
+    rec_got = u @ np.diag(s) @ vt
+    rec_want = u_ref[:, :k] @ np.diag(s_ref[:k]) @ vt_ref[:k]
+    np.testing.assert_allclose(rec_got, rec_want,
+                               atol=1e-10 * np.abs(rec_want).max())
+    assert np.all(np.mean(u, axis=0) >= -1e-12)
+    np.testing.assert_allclose(np.linalg.norm(u, axis=0), 1.0, rtol=1e-12)
 
 
 def test_svd_concat_energy(source_setup):

@@ -206,7 +206,7 @@ def test_compact_all_centers_match_host_snap():
 
 def test_detection_counts_empty_movie():
     """A degenerate 0-frame movie (single-frame input upstream) yields zero
-    counts instead of a reduction-over-empty-axis error (ADVICE r3)."""
+    counts instead of a reduction-over-empty-axis error."""
     mesh = synthetic.plane_patch(nx=6, ny=6, lx=4.0, ly=4.0)
     v0 = jnp.zeros((0, mesh.n_vertices, 3))
     field, counts = singularity.detect_with_counts(mesh, v0)

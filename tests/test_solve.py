@@ -95,7 +95,7 @@ def test_cg_agrees_with_cholesky(curved_mesh, wave_movie):
 
 def test_refined_reaches_float64_accuracy(curved_mesh, wave_movie):
     """Mixed-precision refinement (f32 inner PCG + f64 residuals) must land
-    at SuperLU-level accuracy — the TPU bench accuracy gate (solve.refine)."""
+    at SuperLU-level accuracy — the bench accuracy gate (solve.refine)."""
     pot, times = wave_movie
     want, _ = _oracle(curved_mesh, pot, times)
     res = compute_velocity_fields(
@@ -207,3 +207,46 @@ def test_frame_chunked_solve_matches_unchunked(curved_mesh):
     # agreement is at the refined solver's delivered accuracy (~1e-5 gate).
     np.testing.assert_allclose(np.asarray(got_r.v_k), np.asarray(want_r.v_k),
                                rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("bad", [0, -4, np.int64(0), 2.5, "4", True])
+def test_frame_chunk_rejects_non_positive_or_non_int(curved_mesh, bad):
+    """frame_chunk is 'auto', None or a positive int; anything else (a
+    non-positive int above all, which used to slip through) is a
+    ValueError rather than a silent unchunked solve."""
+    from manifold_flow_tpu.geometry import synthetic
+
+    pot, times = synthetic.plane_wave_movie(curved_mesh, n_frames=6)
+    with pytest.raises(ValueError, match="frame_chunk"):
+        compute_velocity_fields(curved_mesh, jnp.asarray(pot),
+                                jnp.asarray(times), method="cg",
+                                frame_chunk=bad)
+
+
+def test_refined_residual_is_native_f64(curved_mesh):
+    """The refined solve reports its residual |f - A x| from a native f64
+    matvec (fem.operator), equal to the SciPy-assembled residual of the
+    returned solution, and converges below tol * |f| per frame."""
+    from manifold_flow_tpu.geometry import synthetic
+    from manifold_flow_tpu.solve.refine import solve_refined
+
+    pot, times = synthetic.plane_wave_movie(curved_mesh, n_frames=5)
+    res = solve_refined(curved_mesh, jnp.asarray(pot), jnp.asarray(times),
+                        lambda_=0.01, tol=1e-10)
+    assert bool(jnp.all(res.converged))
+    assert int(res.outer_steps) >= 2
+    mesh = curved_mesh
+    pts, tris = np.asarray(mesh.points), np.asarray(mesh.triangles)
+    e = ref.orthonormal_basis_np(np.asarray(mesh.normals))
+    grad_w = ref.hat_gradients_np(pts, tris)
+    areas = ref.triangle_areas_np(pts, tris)
+    a2 = ref.assemble_a2_np(tris, areas, e, grad_w)
+    x = np.asarray(res.x)
+    for k in range(x.shape[0]):
+        a1, f = ref.assemble_frame_np(pot[k], pot[k + 1],
+                                      times[k + 1] - times[k], tris, grad_w,
+                                      e, areas)
+        r = np.linalg.norm(f - (a1 + 0.01 * a2) @ x[k])
+        assert r <= 1e-10 * np.linalg.norm(f) * (1 + 1e-6)
+        np.testing.assert_allclose(float(res.residual[k]), r,
+                                   rtol=1e-3, atol=1e-14 * np.linalg.norm(f))
